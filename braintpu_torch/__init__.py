@@ -5,11 +5,14 @@ is held against.  It imports ``torch``, numpy and scipy, and nothing of the
 reference package or its framework.  Importing this package loads nothing
 heavy; each subpackage imports what it needs.
 
-This slice ports the ``segment`` path in fullconv mode for MODEL1_BN: NIfTI
-decode, crop / z-score / pad, the folded-BN U-Net whose eligible 3x3x3
-convs run on the hand-written Hopper kernel ``ops.conv3d.conv3d_tap_merged``,
-8-flip mirror TTA over folds, label painting, the ET rule, uncrop, label
-conventions, volumes and Dice.
+The port covers the ``segment`` path in fullconv mode for the two-model
+ensemble: NIfTI decode, crop / z-score / pad, MODEL1_BN (BatchNorm folded;
+its eligible 3x3x3 convs on the hand-written Hopper kernel
+``ops.conv3d.conv3d_tap_merged``) and MODEL2_GN_LARGE (deferred GroupNorm;
+its stride-1 3x3x3 convs on ``ops.stage.conv_stage``), the up-convs of both
+on ``ops.upconv.upconv2x``, 8-flip mirror TTA over folds, the softmax-mean
+ensemble, label painting, the ET rule, uncrop, label conventions, volumes
+and Dice.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,13 @@
 """Command-line interface of the port: ``segment`` and ``evaluate``.
 
     python -m braintpu_torch.cli segment --input CASE_DIR --output OUT \\
-        --checkpoints results/trained_synth/checkpoints --models model1 --folds 2
+        --checkpoints results/trained_synth/checkpoints --models model1,model2 --folds 2
     python -m braintpu_torch.cli evaluate --pred OUT/CASE.nii.gz --gt CASE_seg.nii.gz
 
-The flags follow ``braintpu/cli.py``'s ``segment`` for what this slice
-ports (fullconv mode with the softmax-level ensemble, model1, npz
-checkpoints), plus ``--device``: the card by default, ``cpu`` only when
-asked for.
+The flags follow ``braintpu/cli.py``'s ``segment`` for what the port has
+(fullconv mode with the softmax-level ensemble of model1 and model2, npz
+checkpoints, ``--random-weights``), plus ``--device``: the card by default,
+``cpu`` only when asked for.
 """
 
 from __future__ import annotations
@@ -23,27 +23,38 @@ __all__ = ["build_parser", "load_engine", "main"]
 
 
 def load_engine(args):
-    """Build an InferenceEngine from ``--checkpoints``/``--models``/``--folds``."""
+    """Build an InferenceEngine from ``--checkpoints``/``--models``/``--folds``.
+
+    A fold whose ``<checkpoints>/<model>/fold_<f>.npz`` is missing raises,
+    unless ``--random-weights`` is given: then it gets ``init_params(cfg,
+    i * 1000 + f)`` for the i-th selected model, as in the reference.
+    Prints, per model, which folds were loaded and which were drawn.
+    """
     from .ckpt.npz import load_pytree_npz, params_from_jax
     from .infer.engine import InferenceEngine, ModelBundle
-    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE
+    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
 
     configs = {"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE}
     selected = [n.strip() for n in args.models.split(",") if n.strip()]
     unknown = [n for n in selected if n not in configs]
     if unknown:
         raise SystemExit(f"unknown model(s) {unknown}; choose from {sorted(configs)}")
-    if not args.checkpoints:
-        raise SystemExit("--checkpoints is required (random weights are not ported yet)")
     bundles = []
-    for name in selected:
+    for i, name in enumerate(selected):
         cfg = configs[name]
-        fold_params = []
+        fold_params, loaded, drawn = [], [], []
         for f in range(args.folds):
-            npz = Path(args.checkpoints) / name / f"fold_{f}.npz"
-            if not npz.exists():
-                raise SystemExit(f"checkpoint for {name}/fold_{f} not found: {npz}")
-            fold_params.append(params_from_jax(load_pytree_npz(npz), cfg))
+            npz = Path(args.checkpoints) / name / f"fold_{f}.npz" if args.checkpoints else None
+            if npz is not None and npz.exists():
+                fold_params.append(params_from_jax(load_pytree_npz(npz), cfg))
+                loaded.append(f)
+            elif args.random_weights:
+                fold_params.append(init_params(cfg, i * 1000 + f))
+                drawn.append(f"{f} (seed {i * 1000 + f})")
+            else:
+                raise SystemExit(f"checkpoint for {name}/fold_{f} not found under "
+                                 f"{args.checkpoints!r}; pass --random-weights for a dry run")
+        print(f"# {name}: folds loaded {loaded or 'none'}; random {drawn or 'none'}", flush=True)
         bundles.append(ModelBundle.from_folds(cfg, fold_params, name=name))
     return InferenceEngine(
         models=bundles,
@@ -95,13 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("segment", help="ensemble segmentation only")
     p.add_argument("--input", required=True, help="case folder (or a root of case folders)")
     p.add_argument("--output", required=True)
-    p.add_argument("--checkpoints", help="checkpoint root: model1/fold_N.npz layout")
-    p.add_argument("--models", default="model1", help="comma list (this slice: model1)")
+    p.add_argument("--checkpoints", help="checkpoint root: model{1,2}/fold_N.npz layout")
+    p.add_argument("--models", default="model1,model2", help="comma list: model1,model2")
     p.add_argument("--folds", type=int, default=5)
     p.add_argument("--convention", choices=["internal", "brats2025", "brats2021"],
                    default="brats2025", help="label convention of saved segmentations")
     p.add_argument("--no-tta", action="store_true")
     p.add_argument("--no-et-postprocess", action="store_true")
+    p.add_argument("--random-weights", action="store_true",
+                   help="random init for folds without a checkpoint (demo/bench)")
     p.add_argument("--warmup", action="store_true",
                    help="run one dummy case of the standard bucket before the first case")
     p.add_argument("--device", default=None, help="torch device; default: the card (cuda)")

@@ -1,8 +1,8 @@
 """Case-level inference: preprocess -> fullconv ensemble -> labels -> export.
 
 Counterpart of ``braintpu/infer/engine.py`` in fullconv mode: a
-:class:`ModelBundle` per architecture (its folds, BatchNorm folded), the
-softmax-level ensemble (mean of the models' sigmoid region maps, then the
+:class:`ModelBundle` per architecture (its folds; BatchNorm folded,
+GroupNorm / InstanceNorm kept as loaded), the softmax-level ensemble (mean of the models' sigmoid region maps, then the
 KAIST 200-voxel ET rule), uncrop, the output label convention and
 per-region volumes.
 
@@ -55,33 +55,38 @@ class ModelBundle:
     """One architecture + its per-fold weights, inference-ready."""
 
     cfg: UNetConfig
-    fold_params: List[Dict[str, Any]]  # BatchNorm folded (see from_folds)
+    fold_params: List[Dict[str, Any]]  # see from_folds
     name: str = ""
+    #: BatchNorm folded into the convs (False for GroupNorm / InstanceNorm)
+    folded: bool = True
 
     @classmethod
     def from_folds(
         cls, cfg: UNetConfig, fold_params: Sequence[Dict[str, Any]], name: str = ""
     ) -> "ModelBundle":
-        """Fold BatchNorm into each fold's convs (in f32) and store the conv,
-        up-conv and seg kernels at the compute dtype -- their use-site dtype,
-        as the reference stores them for folded bundles.  Biases stay f32.
+        """Inference-ready copies of each fold's parameters.
 
-        ``fold_params``: port parameters (``ckpt.npz.params_from_jax``) at
-        any float dtype; f16-stored checkpoints are upcast here.
+        A BatchNorm model has its norm folded into the convs (in f32) and is
+        marked ``folded``.  A GroupNorm / InstanceNorm model has nothing to
+        fold: its parameters stay as loaded (``folded`` False).  Either way
+        the conv, up-conv and seg kernels are stored at the compute dtype --
+        one rounding from the loaded leaf, the same bits as the reference's
+        use-site cast -- and biases, scales and shifts in f32.
+
+        ``fold_params``: port parameters (``ckpt.npz.params_from_jax`` or
+        ``models.unet3d.init_params``) at any float dtype.
         """
-        if cfg.norm != "batch":
-            raise NotImplementedError(
-                f"norm={cfg.norm!r}: GroupNorm/InstanceNorm models are the next slice")
+        folded = cfg.norm == "batch"
 
         def store(t: torch.Tensor) -> torch.Tensor:
             return t.to(cfg.compute_dtype) if t.dim() >= 5 else t.float()
 
-        folded = [_map_tree(store, fold_batchnorm(p, cfg)) for p in fold_params]
-        return cls(cfg, folded, name or cfg.name)
+        params = [fold_batchnorm(p, cfg) if folded else p for p in fold_params]
+        return cls(cfg, [_map_tree(store, p) for p in params], name or cfg.name, folded)
 
     def to(self, device: torch.device) -> "ModelBundle":
         moved = [_map_tree(lambda t: t.to(device), p) for p in self.fold_params]
-        return ModelBundle(self.cfg, moved, self.name)
+        return ModelBundle(self.cfg, moved, self.name, self.folded)
 
 
 def uncrop_labels(seg_cropped: np.ndarray, crop) -> np.ndarray:
@@ -152,7 +157,8 @@ class InferenceEngine:
         info["bucket_shape"] = tuple(int(s) for s in pre.data.shape[1:])
         t1 = time.perf_counter()
         per_model_probs = [
-            predict_probs_fullconv(m.fold_params, pre.data, m.cfg, tta=self.tta)
+            predict_probs_fullconv(m.fold_params, pre.data, m.cfg, tta=self.tta,
+                                   folded=m.folded)
             for m in self.models
         ]
         seg_internal = self._ensemble_labels(per_model_probs, pre)  # syncs: labels to host

@@ -51,15 +51,17 @@ def fullconv_predict(
     volume: torch.Tensor,
     cfg: UNetConfig,
     num_mirror: int = 8,
+    folded: bool = True,
 ) -> torch.Tensor:
     """Mirror-TTA, fold-averaged region probabilities over the whole volume.
 
     Args:
-      fold_params: one folded-BN parameter dict per fold (on the volume's
-        device).
+      fold_params: one parameter dict per fold (on the volume's device).
       volume: (X, Y, Z, C) preprocessed volume, every spatial axis a
         multiple of ``2**cfg.num_pool``.
       num_mirror: 1 (no TTA) or 8 (full mirror TTA).
+      folded: the params have BatchNorm folded into the convs (see
+        ``models.unet3d.apply_unet``).
 
     Returns:
       (X, Y, Z, K) f32 sigmoid probabilities averaged over folds x mirrors.
@@ -80,7 +82,7 @@ def fullconv_predict(
         batch = _apply_flips(x, axes)
         group.zero_()
         for params in fold_params:
-            group += torch.sigmoid(apply_unet(params, batch, cfg))
+            group += torch.sigmoid(apply_unet(params, batch, cfg, folded=folded))
         probs += _apply_flips(group, axes)
     probs /= len(fold_params) * len(combos)
     return probs[0]
@@ -91,10 +93,11 @@ def predict_probs_fullconv(
     volume_cxyz: torch.Tensor,
     cfg: UNetConfig,
     tta: bool = True,
+    folded: bool = True,
 ) -> torch.Tensor:
     """(C, X, Y, Z) volume (already multiple-of-2^pool) -> (X, Y, Z, K) probs."""
     vol = volume_cxyz.movedim(0, -1).contiguous()
-    return fullconv_predict(fold_params, vol, cfg, num_mirror=8 if tta else 1)
+    return fullconv_predict(fold_params, vol, cfg, num_mirror=8 if tta else 1, folded=folded)
 
 
 def region_probs_to_labels(

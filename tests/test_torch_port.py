@@ -22,6 +22,8 @@ from braintpu_torch.io import nifti
 from braintpu_torch.models import unet3d
 from braintpu_torch.ops import _build
 from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
+from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
+from braintpu_torch.ops.upconv import upconv2x, upconv2x_ref
 from braintpu_torch.train.synthetic import write_synth_case
 
 REPO = Path(__file__).resolve().parent.parent
@@ -111,11 +113,8 @@ def test_engine_rejects_what_is_not_ported():
     bundle = _tiny_bundle()
     with pytest.raises(NotImplementedError, match="not ported"):
         InferenceEngine(models=[bundle], mode="sliding", device="cpu")
-    gn = unet3d.UNetConfig(norm="group")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ModelBundle.from_folds(gn, [])
-    with pytest.raises(NotImplementedError, match="next slice"):
-        unet3d.apply_unet({}, torch.zeros(1, 32, 32, 32, 4), gn)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        unet3d.apply_unet({}, torch.zeros(1, 32, 32, 32, 4), unet3d.MODEL1_BN, folded=False)
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "w_dtype", "b_dtype", "shape", "channels"])
@@ -159,6 +158,80 @@ def test_cpu_call_runs_the_plain_version_and_counts_no_launch():
     assert conv3d_tap_merged.launches == before
     assert y.dtype == torch.bfloat16 and y.shape == (1, 4, 8, 9, 16)
     assert torch.equal(y, conv3d_tap_merged_ref(x, w, b, 0.01))
+
+
+def _stage_args(N=1, D=3, H=8, W=9, ci1=8, ci2=8, co=16, device="cpu"):
+    g = torch.Generator().manual_seed(0)
+    x1 = torch.randn(N, D, H, W, ci1, generator=g).bfloat16().to(device)
+    x2 = torch.randn(N, D, H, W, ci2, generator=g).bfloat16().to(device) if ci2 else None
+    w = (torch.randn(3, 3, 3, ci1 + ci2, co, generator=g) / (27 * (ci1 + ci2)) ** 0.5)
+    b = torch.randn(co, generator=g) * 0.1
+    aff = dict(a1=torch.rand(N, ci1, generator=g) + 0.5, c1=torch.randn(N, ci1, generator=g))
+    if ci2:
+        aff.update(a2=torch.rand(ci2, generator=g) + 0.5, c2=torch.randn(ci2, generator=g))
+    return (x1, w.bfloat16().to(device), b.to(device), x2,
+            {k: v.to(device) for k, v in aff.items()})
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "w_dtype", "b_dtype", "channels", "x2_shape",
+                                 "affine_shape", "affine_half", "affine_without_x2"])
+def test_stage_wrapper_validates_before_dispatch(bad):
+    x1, w, b, x2, aff = _stage_args()
+    if bad == "x_dtype":
+        x1 = x1.float()
+    elif bad == "w_dtype":
+        w = w.float()
+    elif bad == "b_dtype":
+        b = b.bfloat16()
+    elif bad == "channels":
+        x2 = x2[..., :0]
+    elif bad == "x2_shape":
+        x2 = x2[:, :2]
+    elif bad == "affine_shape":
+        aff["a1"] = aff["a1"][:, :4]
+    elif bad == "affine_half":
+        del aff["c2"]
+    else:
+        x2 = None
+        w = w[:, :, :, :8]
+    with pytest.raises((TypeError, ValueError)):
+        conv_stage(x1, w, b, x2=x2, stats=True, **aff)
+
+
+def test_stage_and_upconv_wrappers_never_fall_back_off_cpu():
+    x1, w, b, x2, aff = (t.to("meta") if isinstance(t, torch.Tensor) else t
+                         for t in _stage_args(ci2=0)[:4] + (None,))
+    before = conv_stage.launches, upconv2x.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        conv_stage(x1, w, b)
+    xu = torch.zeros(1, 2, 2, 2, 16, dtype=torch.bfloat16, device="meta")
+    wu = torch.zeros(16, 2, 2, 2, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        upconv2x(xu, wu)
+    assert (conv_stage.launches, upconv2x.launches) == before
+
+
+def test_stage_and_upconv_cpu_calls_run_the_plain_versions_and_count_no_launch():
+    x1, w, b, x2, aff = _stage_args(N=2)
+    before = conv_stage.launches, upconv2x.launches
+    y, s1, s2 = conv_stage(x1, w, b, x2=x2, in1_slope=0.01, in2_slope=0.01, stats=True, **aff)
+    ry, r1, r2 = conv_stage_ref(x1, w, b, x2=x2, in1_slope=0.01, in2_slope=0.01, stats=True,
+                                **aff)
+    assert torch.equal(y, ry) and torch.equal(s1, r1) and torch.equal(s2, r2)
+    assert y.shape == (2, 3, 8, 9, 16) and s1.shape == s2.shape == (2, 16)
+    xu = x1[..., :8].contiguous()
+    wu = torch.randn(8, 2, 2, 2, 24).bfloat16()
+    u = upconv2x(xu, wu)
+    assert u.shape == (2, 6, 16, 18, 24) and torch.equal(u, upconv2x_ref(xu, wu))
+    assert (conv_stage.launches, upconv2x.launches) == before
+
+
+def test_upconv_wrapper_validates_before_dispatch():
+    x = torch.zeros(1, 2, 2, 2, 16, dtype=torch.bfloat16)
+    for w in (torch.zeros(16, 2, 2, 2, 8), torch.zeros(16, 3, 2, 2, 8, dtype=torch.bfloat16),
+              torch.zeros(8, 2, 2, 2, 8, dtype=torch.bfloat16)):
+        with pytest.raises((TypeError, ValueError)):
+            upconv2x(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +296,47 @@ def test_cli_segment_and_evaluate_on_cpu(tmp_path, capsys):
     report = json.loads(capsys.readouterr().out.split("\nMean Dice")[0])
     assert set(report["compound"]) == {"WT", "TC", "ET"}
     assert 0.0 <= report["mean_dice"] <= 1.0
+
+
+def _model1_only_checkpoints(tmp_path):
+    """A checkpoint root holding model1's trained folds and no model2."""
+    root = tmp_path / "ckpts"
+    (root / "model1").mkdir(parents=True)
+    for f in (0, 1):
+        (root / "model1" / f"fold_{f}.npz").symlink_to(CKPTS / "model1" / f"fold_{f}.npz")
+    return root
+
+
+def test_cli_two_models_random_weights_for_the_missing_model(tmp_path, capsys):
+    case = write_synth_case(tmp_path / "in", "BraTS-SYN-00003-000", seed=3, shape=(30, 28, 26))
+    root = _model1_only_checkpoints(tmp_path)
+    rc = cli.main(["segment", "--input", str(case), "--output", str(tmp_path / "out"),
+                   "--checkpoints", str(root), "--models", "model1,model2", "--folds", "1",
+                   "--no-tta", "--random-weights", "--device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "# model1: folds loaded [0]; random none" in out
+    assert "# model2: folds loaded none; random ['0 (seed 1000)']" in out
+    seg = nifti.load(tmp_path / "out" / "BraTS-SYN-00003-000.nii.gz").get_fdata(np.float32)
+    assert seg.shape == (30, 28, 26) and set(np.unique(seg)) <= {0, 1, 2, 3}
+
+
+def test_cli_load_engine_draws_the_reference_seeds_and_refuses_without_the_flag(tmp_path):
+    root = _model1_only_checkpoints(tmp_path)
+    args = cli.build_parser().parse_args(
+        ["segment", "--input", "x", "--output", "y", "--checkpoints", str(root),
+         "--folds", "2", "--random-weights", "--device", "cpu"])
+    assert args.models == "model1,model2"  # the reference's default ensemble
+    eng = cli.load_engine(args)
+    m1, m2 = eng.models
+    assert (m1.name, m1.folded, m2.name, m2.folded) == ("model1", True, "model2", False)
+    for f, params in enumerate(m2.fold_params):
+        want = unet3d.init_params(unet3d.MODEL2_GN_LARGE, 1000 + f)
+        assert torch.equal(params["decoder"][0]["up"]["w"],
+                           want["decoder"][0]["up"]["w"].to(torch.bfloat16))
+    args.random_weights = False
+    with pytest.raises(SystemExit, match="model2/fold_0 not found"):
+        cli.load_engine(args)
 
 
 def test_nifti_save_load_f32_round_trip(tmp_path):
@@ -292,7 +406,7 @@ def test_gpu_engine_segments_through_the_kernel(cuda, tmp_path):
     case = write_synth_case(tmp_path, "BraTS-SYN-00200-000", seed=200, shape=(128, 128, 112))
     args = cli.build_parser().parse_args(
         ["segment", "--input", str(case), "--output", str(tmp_path / "o"), "--checkpoints",
-         str(CKPTS), "--folds", "2"])
+         str(CKPTS), "--models", "model1", "--folds", "2"])
     eng = cli.load_engine(args)
     assert eng.device.type == "cuda"
     before = conv3d_tap_merged.launches
@@ -300,3 +414,69 @@ def test_gpu_engine_segments_through_the_kernel(cuda, tmp_path):
     seg, info = eng.predict_case(find_cases(case)[0])
     assert info["bucket_shape"] == (128, 128, 96)
     assert conv3d_tap_merged.launches - before == 16 * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 3, 8, 9, 8, 0, 16), (2, 5, 9, 13, 24, 8, 40),
+                                   (1, 16, 16, 12, 64, 64, 64), (1, 8, 14, 14, 320, 320, 320)])
+def test_gpu_stage_kernel_matches_plain_version(cuda, shape):
+    N, D, H, W, ci1, ci2, co = shape
+    x1, w, b, x2, aff = _stage_args(N, D, H, W, ci1, ci2, co, device=cuda)
+    aff["c1"] = aff["c1"] + 3.0  # a large shift: padding must stay untransformed
+    kw = dict(x2=x2, in1_slope=0.01, in2_slope=0.01 if ci2 else None, stats=True, **aff)
+    before = conv_stage.launches
+    y, s1, s2 = conv_stage(x1, w, b, **kw)
+    ry, r1, r2 = conv_stage_ref(x1, w, b, **kw)
+    torch.cuda.synchronize()
+    assert conv_stage.launches == before + 1
+    assert (y.float() - ry.float()).abs().max().item() <= 0.02 * ry.float().abs().max().item()
+    sum_abs = conv_stage_ref(x1, w, b, **{**kw, "stats": False}).float().abs().sum((1, 2, 3))
+    assert torch.all((s1 - r1).abs() <= 1e-3 * sum_abs)
+    assert torch.all((s2 - r2).abs() <= 1e-3 * r2)
+    yo = conv_stage(x1, w, b, x2=x2, out_slope=0.01)
+    ro = conv_stage_ref(x1, w, b, x2=x2, out_slope=0.01)
+    assert (yo.float() - ro.float()).abs().max().item() <= 0.02 * ro.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 3, 5, 7, 8, 8), (2, 2, 8, 9, 24, 40),
+                                   (1, 7, 7, 4, 320, 320), (1, 16, 16, 8, 64, 32)])
+def test_gpu_upconv_kernel_matches_plain_version(cuda, shape):
+    N, D, H, W, ci, co = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(N, D, H, W, ci, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(ci, 2, 2, 2, co, device=cuda, generator=g) / ci ** 0.5).bfloat16()
+    before = upconv2x.launches
+    y = upconv2x(x, w)
+    ref = upconv2x_ref(x, w)
+    torch.cuda.synchronize()
+    assert upconv2x.launches == before + 1
+    assert (y.float() - ref.float()).abs().max().item() <= 0.02 * ref.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_stage_and_upconv_refuse_wrong_dtype(cuda):
+    x1, w, b, _, _ = _stage_args(ci2=0, device=cuda)
+    with pytest.raises(TypeError):
+        conv_stage(x1.float(), w, b)
+    with pytest.raises(TypeError):
+        upconv2x(x1, torch.zeros(8, 2, 2, 2, 8, device=cuda))
+
+
+@pytest.mark.gpu
+def test_gpu_two_model_engine_launches_both_new_kernels(cuda, tmp_path):
+    case = write_synth_case(tmp_path, "BraTS-SYN-00200-000", seed=200, shape=(128, 128, 112))
+    args = cli.build_parser().parse_args(
+        ["segment", "--input", str(case), "--output", str(tmp_path / "o"), "--checkpoints",
+         str(_model1_only_checkpoints(tmp_path)), "--folds", "1", "--no-tta",
+         "--random-weights"])
+    eng = cli.load_engine(args)
+    from braintpu_torch.io.brats import find_cases
+    before = conv3d_tap_merged.launches, conv_stage.launches, upconv2x.launches
+    seg, info = eng.predict_case(find_cases(case)[0])
+    bucket = info["bucket_shape"]
+    assert bucket == (128, 128, 96)
+    stage = sum(unet3d.choose_stage_impl(s, (3, 3, 3), st, co, c2) == "kernel"
+                for s, st, co, c2 in unet3d.deferred_layers(unet3d.MODEL2_GN_LARGE, bucket))
+    after = conv3d_tap_merged.launches, conv_stage.launches, upconv2x.launches
+    assert tuple(a - b for a, b in zip(after, before)) == (3, stage, 10)
