@@ -51,7 +51,7 @@ def fullconv_predict(
     volume: torch.Tensor,
     cfg: UNetConfig,
     num_mirror: int = 8,
-    folded: bool = True,
+    folded: bool = False,
 ) -> torch.Tensor:
     """Mirror-TTA, fold-averaged region probabilities over the whole volume.
 
@@ -61,7 +61,7 @@ def fullconv_predict(
         multiple of ``2**cfg.num_pool``.
       num_mirror: 1 (no TTA) or 8 (full mirror TTA).
       folded: the params have BatchNorm folded into the convs (see
-        ``models.unet3d.apply_unet``).
+        ``models.unet3d.apply_unet``; False by default, as in the reference).
 
     Returns:
       (X, Y, Z, K) f32 sigmoid probabilities averaged over folds x mirrors.
@@ -93,7 +93,7 @@ def predict_probs_fullconv(
     volume_cxyz: torch.Tensor,
     cfg: UNetConfig,
     tta: bool = True,
-    folded: bool = True,
+    folded: bool = False,
 ) -> torch.Tensor:
     """(C, X, Y, Z) volume (already multiple-of-2^pool) -> (X, Y, Z, K) probs."""
     vol = volume_cxyz.movedim(0, -1).contiguous()

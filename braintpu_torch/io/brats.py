@@ -1,13 +1,16 @@
 """BraTS case discovery, modality order and case loading.
 
-Copy of ``braintpu/io/brats.py`` restricted to what the segment path uses:
-case discovery across the BraTS-2021 and BraTS-2025 naming schemes, the
-canonical modality -> channel order, and :func:`load_case_volumes` through
-the pure-Python NIfTI codec (the port has no native decoder yet).
+Copy of ``braintpu/io/brats.py`` restricted to what the segment and
+pipeline paths use: case discovery across the BraTS-2021 and BraTS-2025
+naming schemes, the in-place BraTS-2025 -> 2021 rename that the pipeline's
+first stage runs, the canonical modality -> channel order, and
+:func:`load_case_volumes` through the pure-Python NIfTI codec (the port has
+no native decoder yet, so the rename gzips with the standard library).
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import re
 from dataclasses import dataclass
@@ -23,6 +26,8 @@ __all__ = [
     "MODALITY_CHANNEL",
     "SUFFIX_MAP_2025_TO_2021",
     "BRATS2025_PATTERN",
+    "convert_filename_2025_to_2021",
+    "rename_brats2025_folder",
     "BratsCase",
     "find_cases",
     "load_case_volumes",
@@ -50,6 +55,46 @@ _2021_SUFFIX = r"(?P<suffix>t1ce|t1|t2|flair|seg)"
 BRATS2021_PATTERN = re.compile(
     rf"^(?P<case>.+)_{_2021_SUFFIX}\.(?P<ext>nii(?:\.gz)?)$"
 )
+
+
+def convert_filename_2025_to_2021(filename: str) -> Tuple[Optional[str], bool]:
+    """Map a BraTS-2025 filename to 2021 convention.
+
+    Returns ``(new_name, needs_compression)``; ``(None, False)`` when the name
+    is not a 2025-scheme file.  Output always uses ``.nii.gz``.
+    """
+    m = BRATS2025_PATTERN.match(filename)
+    if not m:
+        return None, False
+    new_suffix = SUFFIX_MAP_2025_TO_2021[m.group("suffix")]
+    return f"{m.group('case')}_{new_suffix}.nii.gz", m.group("ext") == "nii"
+
+
+def rename_brats2025_folder(folder: os.PathLike, dry_run: bool = False) -> List[Tuple[str, str]]:
+    """Rename (and gzip-compress when needed) all 2025-scheme files in place.
+
+    Returns the list of ``(old_name, new_name)`` pairs that were (or would be)
+    converted.  Files already in 2021 convention are left untouched.
+    """
+    folder = Path(folder)
+    changes: List[Tuple[str, str]] = []
+    for entry in sorted(folder.iterdir()):
+        if not entry.is_file():
+            continue
+        new_name, needs_gz = convert_filename_2025_to_2021(entry.name)
+        if new_name is None:
+            continue
+        changes.append((entry.name, new_name))
+        if dry_run:
+            continue
+        dst = folder / new_name
+        if needs_gz:
+            with gzip.open(dst, "wb") as f_out:
+                f_out.write(entry.read_bytes())
+            entry.unlink()
+        else:
+            entry.rename(dst)
+    return changes
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Label-space remapping between nnU-Net internal and BraTS conventions.
 
 Counterpart of ``braintpu/labels/convert.py`` (its host numpy path, which is
-where the engine remaps: after the labels come back from the device).
+where the engine and the pipeline remap: after the labels come back from
+the device).
 
 Internal (regions export with ``region_class_order=(1,2,3)``):
 0 = background, 1 = ED (WT-only), 2 = NCR (TC-not-ET), 3 = ET.
@@ -16,11 +17,17 @@ __all__ = [
     "remap_labels",
     "internal_to_brats2025",
     "internal_to_brats2021",
+    "brats2025_to_internal",
+    "brats2021_to_internal",
+    "brats2021_to_brats2025",
+    "brats2025_to_brats2021",
     "normalize_to_brats2025",
 ]
 
 _INTERNAL_TO_2025 = (0, 2, 1, 3)  # index = internal label
 _INTERNAL_TO_2021 = (0, 2, 1, 4)
+_2021_TO_2025 = (0, 1, 2, 0, 3)  # label 3 unused in 2021 space
+_2025_TO_2021 = (0, 1, 2, 4)
 _ANY_TO_2025 = (0, 1, 2, 3, 3)  # both ET spellings (2021: 4, 2025: 3) -> 3
 
 
@@ -51,6 +58,28 @@ def internal_to_brats2025(seg) -> np.ndarray:
 def internal_to_brats2021(seg) -> np.ndarray:
     """nnU-Net internal [0,1,2,3] -> BraTS-2021 [0,1,2,4] (ET becomes 4)."""
     return remap_labels(seg, _INTERNAL_TO_2021)
+
+
+def brats2025_to_internal(seg) -> np.ndarray:
+    """BraTS-2025 [0,1,2,3] -> nnU-Net internal (the remap is an involution:
+    1 NCR <-> 2 internal-NCR, 2 ED <-> 1 internal-ED, ET stays 3)."""
+    return remap_labels(seg, _INTERNAL_TO_2025)
+
+
+def brats2021_to_internal(seg) -> np.ndarray:
+    """BraTS-2021 [0,1,2,4] -> nnU-Net internal [0,1,2,3]."""
+    return brats2025_to_internal(brats2021_to_brats2025(seg))
+
+
+def brats2021_to_brats2025(seg) -> np.ndarray:
+    """Strict BraTS-2021 -> 2025 map: ET 4 -> 3, and label 3 (unused in 2021
+    space) -> 0.  Only for true 2021-space labels: it erases a 2025 ET."""
+    return remap_labels(seg, _2021_TO_2025)
+
+
+def brats2025_to_brats2021(seg) -> np.ndarray:
+    """BraTS-2025 [0,1,2,3] -> BraTS-2021 [0,1,2,4]."""
+    return remap_labels(seg, _2025_TO_2021)
 
 
 def normalize_to_brats2025(seg) -> np.ndarray:

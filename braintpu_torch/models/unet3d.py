@@ -371,13 +371,14 @@ def _low_precision_on_cpu(x: torch.Tensor, dtype: torch.dtype) -> bool:
 def _conv3d_library(x, w, b, stride, dtype, negative_slope: Optional[float]):
     """``F.conv3d`` on NDHWC/DHWIO tensors (channels-last views, no copies of x).
 
-    On the CPU a bf16 config computes in f32 from the bf16 operands and
-    rounds the result, as the card's bf16 conv (f32 accumulation) does.
+    On the CPU a bf16 config computes in f32 from the operands rounded to
+    bf16 and rounds the result, as the card's bf16 conv (f32 accumulation)
+    does.
     """
     pad = tuple((k - 1) // 2 for k in w.shape[:3])
     if _low_precision_on_cpu(x, dtype):
-        y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2),
-                     b.float(), stride, pad)
+        y = F.conv3d(x.to(dtype).float().permute(0, 4, 1, 2, 3),
+                     w.to(dtype).float().permute(4, 3, 0, 1, 2), b.to(dtype).float(), stride, pad)
     else:
         wt = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
         y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3), wt, b.to(dtype), stride, pad)
@@ -387,12 +388,22 @@ def _conv3d_library(x, w, b, stride, dtype, negative_slope: Optional[float]):
 
 
 def _block(x, block, cfg: UNetConfig, stride) -> torch.Tensor:
-    """Folded-BN block: Conv + bias -> LeakyReLU (fused in the kernel)."""
+    """Folded-BN block: Conv + bias -> LeakyReLU (fused in the kernel).
+
+    The kernel is used at the compute dtype whatever its stored dtype, as
+    the reference casts at the point of use.  A block that still carries
+    BatchNorm statistics was never folded: it raises rather than run with
+    the norm dropped.
+    """
+    if "mean" in block or "var" in block:
+        raise ValueError("BatchNorm block with running statistics: fold it first "
+                         "(fold_batchnorm), or call apply_unet with folded=False")
     w, b = block["w"], block["b"]
     impl = choose_impl(tuple(x.shape), tuple(w.shape[:3]), stride, int(w.shape[4]),
                        cfg.compute_dtype)
     if impl == "kernel":
-        return conv3d_tap_merged(x.contiguous(), w, b, cfg.negative_slope)
+        return conv3d_tap_merged(x.contiguous(), w.to(cfg.compute_dtype).contiguous(), b.float(),
+                                 cfg.negative_slope)
     return _conv3d_library(x, w, b, stride, cfg.compute_dtype, cfg.negative_slope)
 
 
@@ -409,9 +420,10 @@ def _upconv(x, w, dtype) -> torch.Tensor:
     return upconv2x_ref(x, w, dtype)
 
 
-def _seg_head(x, seg_w) -> torch.Tensor:
-    """1x1x1 seg head without bias, f32 logits."""
-    return x.float() @ seg_w[0, 0, 0].float()
+def _seg_head(x, seg_w, dtype) -> torch.Tensor:
+    """1x1x1 seg head without bias: ``x`` and ``seg_w`` rounded to the
+    compute dtype, accumulated in f32 (f32 logits), as in the reference."""
+    return x.to(dtype).float() @ seg_w[0, 0, 0].to(dtype).float()
 
 
 # ---------------------------------------------------------------------------
@@ -522,11 +534,11 @@ def _apply_unet_deferred(params, x, cfg: UNetConfig) -> torch.Tensor:
         skip = skips[-(u + 1)]
         for i, block in enumerate(stage["blocks"]):
             state = _deferred_block(state, skip if i == 0 else None, block, stride1, cfg)
-    return _seg_head(_materialize(*state, dtype), params["decoder"][-1]["seg"]["w"])
+    return _seg_head(_materialize(*state, dtype), params["decoder"][-1]["seg"]["w"], dtype)
 
 
 def apply_unet(
-    params: Dict[str, Any], x: torch.Tensor, cfg: UNetConfig, folded: bool = True
+    params: Dict[str, Any], x: torch.Tensor, cfg: UNetConfig, folded: bool = False
 ) -> torch.Tensor:
     """Eval-mode forward.
 
@@ -536,8 +548,10 @@ def apply_unet(
         at any float dtype: they are used at ``cfg.compute_dtype``).
       x: (N, D, H, W, C) input, every spatial axis a multiple of
         ``2**num_pool``.
-      folded: whether a BatchNorm model's norms are folded; it must be True
-        (an unfolded BatchNorm forward is not ported).  GroupNorm and
+      folded: whether a BatchNorm model's norms are folded (the reference's
+        default, False, too).  An unfolded BatchNorm forward is not ported:
+        a BatchNorm model raises unless it is True, and a block that still
+        carries running statistics raises even then.  GroupNorm and
         InstanceNorm models have nothing to fold and ignore it.
 
     Returns:
@@ -564,4 +578,4 @@ def apply_unet(
         h = torch.cat([h, skips[-(u + 1)]], dim=-1)
         for block in stage["blocks"]:
             h = _block(h, block, cfg, stride1)
-    return _seg_head(h, params["decoder"][-1]["seg"]["w"])
+    return _seg_head(h, params["decoder"][-1]["seg"]["w"], cfg.compute_dtype)

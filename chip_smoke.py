@@ -15,7 +15,13 @@ the plain version on the same activations; and the two-model ensemble that
 ``init_params`` (seeds 1000, 1001: what ``--random-weights`` gives when the
 model-2 checkpoints are absent), timed on a 240x240x155 case and profiled
 with torch.profiler (device time by kernel category, the device's idle
-share; ``--trace DIR`` keeps the Chrome trace).  Every phase prints its
+share; ``--trace DIR`` keeps the Chrome trace).  Two more paths: the int8
+probe entry point (``python -m braintpu_torch.tools.probe int8``, the only
+caller of the ``int8_matmul`` kernel), whose every shape is held bit-equal
+to the plain version and to ``torch._int_mm``; and the report half of
+``cli pipeline`` (``Pipeline.run_case`` with the model-1 engine on the
+seed-200 case at 240x240x155: convert, evaluate, the six feature steps, the
+governed report and the PDF, each output checked).  Every phase prints its
 wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
@@ -323,16 +329,21 @@ def main() -> int:
                                               upconv_supported)
     from braintpu_torch.ops import _build
     from braintpu_torch.ops.conv3d import conv3d_tap_merged
+    from braintpu_torch.ops.int8_probe import int8_matmul
     from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
     from braintpu_torch.ops.upconv import upconv2x
+    from braintpu_torch.pipeline import Pipeline, PipelineConfig
     from braintpu_torch.pre.preprocess import preprocess_case
+    from braintpu_torch.report import SlotValidator
+    from braintpu_torch.tools import probe
     from braintpu_torch.train.synthetic import write_synth_case
 
+    # the segmentation kernels; int8_matmul (the probe's) is counted apart
     kernels = {"conv3d_tap_merged": conv3d_tap_merged, "conv_stage": conv_stage,
                "upconv2x": upconv2x}
 
     def reset_counts():
-        for fn in kernels.values():
+        for fn in (*kernels.values(), int8_matmul):
             fn.launches = 0
 
     def counts():
@@ -404,6 +415,34 @@ def main() -> int:
                                        for c in (MODEL1_BN, MODEL2_GN_LARGE))]
                 results["upconv2x"].append(r)
                 print(json.dumps({"upconv2x": r}), flush=True)
+            torch.cuda.empty_cache()
+
+        with phase("4b int8_matmul vs plain (probe entry point)"):
+            # the probe entry point is int8_matmul's only path: driven with
+            # every count at 0, read just after
+            log = tmp / "probe.jsonl"
+            reset_counts()
+            rc = probe.main(["int8", "--log", str(log)])
+            int8_launches = int8_matmul.launches
+            int8_records = [json.loads(ln) for ln in log.read_text().splitlines()]
+            print(f"probe int8: rc {rc}, int8_matmul launches {int8_launches}, "
+                  f"segmentation kernels {counts()}")
+            if rc != 0 or int8_launches == 0 or any(counts().values()):
+                raise AssertionError("the probe entry point did not run through int8_matmul alone")
+            # three more shapes: the ragged-valid case, one ragged against
+            # the kernel's own 128 x 128 x 64 tile, and one with K and N off
+            # its 16-byte chunks (the byte-load path); cuBLASLt refuses
+            # K = 80 and K = 84: no library time there
+            for label, M, K, N, bm, bn, bk in (("ragged-valid", 1024, 128, 384, 128, 128, 128),
+                                               ("ragged-tile", 1000, 80, 48, 8, 16, 16),
+                                               ("ragged-bytes", 1000, 84, 50, 8, 10, 12)):
+                r = probe.measure_int8(label, M, K, N, bm, bn, bk, seed=50 + M + K,
+                                       library=label == "ragged-valid")
+                print(json.dumps(r), flush=True)
+                int8_records.append(r)
+            bad = [r["probe"] for r in int8_records if not r["ok"] or r["max_abs_err"] != 0]
+            if bad:
+                raise AssertionError(f"int8_matmul is not bit-equal to its plain version: {bad}")
             torch.cuda.empty_cache()
 
         # model 1 alone: the first slice's main path, now also through upconv2x
@@ -478,6 +517,62 @@ def main() -> int:
                   "(information only)")
             if min(dicef.values()) < 0.99:
                 raise AssertionError(f"Dice below 0.99 at 240x240x155: {dicef}")
+
+        with phase("6b pipeline (main path, report half)"):
+            # cli pipeline's orchestrator on the seed-200 case at 240x240x155
+            # with the same model-1 engine: decode, segment, convert,
+            # evaluate, the six feature steps, the governed report, the PDF
+            reset_counts()
+            result = Pipeline(engine, PipelineConfig(output_root=tmp / "pipeline")).run_case(
+                flagship)
+            torch.cuda.synchronize()
+            pipe_launches = counts()
+            expect_counts({k: v for k, v in pipe_launches.items() if k != "conv_stage"},
+                          model1_launches(buckets["flagship_geometry"]), "pipeline, model 1")
+            if pipe_launches["conv_stage"] or int8_matmul.launches:
+                raise AssertionError(f"the model-1 pipeline launched conv_stage or int8_matmul: "
+                                     f"{pipe_launches}, int8_matmul {int8_matmul.launches}")
+            if not result.succeeded:
+                raise AssertionError(f"pipeline failed: {result.summary.get('error')}")
+            events = [json.loads(ln) for ln in
+                      (result.output_folder / "events.jsonl").read_text().splitlines()]
+            not_ok = [(e["stage"], e["status"]) for e in events if e["status"] not in ("start", "ok")]
+            if not_ok:
+                raise AssertionError(f"pipeline stages not ok: {not_ok}")
+            dice_p = {k: v["dice"] for k, v in result.metrics["compound"].items()}
+            fe = result.output_folder / "feature_extraction"
+            want_files = [f"step{i}_{n}.json" for i, n in enumerate(
+                ("sequence_findings", "mass_effect", "multiplicity", "morphology", "quality",
+                 "normal_structures"), 1)] + ["llm_ready_summary.json", "radiology_report.txt",
+                                              "radiology_report.json", "radiology_report.pdf"]
+            missing = [f for f in want_files if not (fe / f).is_file()]
+            violations = SlotValidator().report_violations(
+                (fe / "radiology_report.txt").read_text())
+            pdf_ok = (fe / "radiology_report.pdf").read_bytes()[:4] == b"%PDF"
+            t = {}
+            for e in events:
+                t.setdefault(e["stage"], {})[e["status"]] = min(
+                    e["t"], t.get(e["stage"], {}).get(e["status"], e["t"]))
+            seg_ok = next(e for e in events if e["stage"] == "segmenting" and e["status"] == "ok")
+            span = lambda stage: t[stage]["ok"] - t[stage]["start"]
+            print(json.dumps({"pipeline": {
+                "case": "BraTS-SYN-00200-000 240x240x155",
+                "models": "model1 (2 trained folds), 8-flip TTA, fullconv",
+                "dice": dice_p, "launches": pipe_launches,
+                "stage_seconds": {
+                    "decode": seg_ok["detail"]["decode_s"],
+                    "segment": seg_ok["detail"]["seconds"],
+                    "convert": span("converting"), "evaluate": span("evaluating"),
+                    "features": span("extracting"), "report": span("generating"),
+                    "pdf": span("exporting"),
+                    "case_total": result.summary["pipeline_duration_seconds"]},
+                "note": "per-stage seconds are host wall time from the events journal "
+                        "(information only)"}}), flush=True)
+            if min(dice_p.values()) < 0.99:
+                raise AssertionError(f"pipeline Dice below 0.99: {dice_p}")
+            if missing or violations or not pdf_ok:
+                raise AssertionError(f"pipeline outputs: missing {missing}, report violations "
+                                     f"{violations}, PDF header ok {pdf_ok}")
         del engine
         torch.cuda.empty_cache()
 
@@ -540,6 +635,8 @@ def main() -> int:
             reset_counts()
             _, info2, dice2 = segment(engine2, brats_size)
             main_launches = counts()
+            if int8_matmul.launches:
+                raise AssertionError("the segmentation path launched int8_matmul")
             if tuple(info2["bucket_shape"]) != tuple(main_bucket):
                 raise AssertionError(f"bucket {info2['bucket_shape']} != {main_bucket}")
             want = dict(model1_launches(main_bucket))
@@ -588,6 +685,20 @@ def main() -> int:
             "shape": h["shape"], "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["library_ms"],
         })
+    cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
+    line.append({
+        "name": "int8_matmul", "route": "cuda", "source": "braintpu_torch/csrc/int8_matmul.cu",
+        "replaces": "braintpu/ops/int8_probe.py:59",
+        "replaces_function": "braintpu/ops/int8_probe.py::int8_matmul", "checked": True,
+        "launches": int8_launches, "launches_on_main_path": 0,
+        "launches_path": "python -m braintpu_torch.tools.probe int8",
+        "max_abs_err": max(r["max_abs_err"] for r in int8_records),
+        "shape": cube["shape"], "ms": cube["kernel_ms"], "plain_ms": cube["plain_ms"],
+        "bound_ms": cube["bound_ms"], "bound_by": cube["bound_by"],
+        "library_ms": cube["library_ms"], "library": cube["library"],
+        "library_rowmajor_ms": cube["library_rowmajor_ms"],
+        "library_colmajor_ms": cube["library_colmajor_ms"],
+    })
     print(f"# total wall: {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi())
     print(json.dumps({"kernels": line}))

@@ -195,7 +195,7 @@ def _forward_both(dtype_name, shape=(1, 32, 32, 24, 4), seed=3):
     ref = np.asarray(jax_unet.apply_unet(jax_unet.fold_batchnorm(tree, jcfg), jnp.asarray(x),
                                          jcfg, folded=True))
     port_params = unet3d.fold_batchnorm(params_from_jax(tree, tcfg), tcfg)
-    got = unet3d.apply_unet(port_params, torch.from_numpy(x), tcfg).numpy()
+    got = unet3d.apply_unet(port_params, torch.from_numpy(x), tcfg, folded=True).numpy()
     return ref, got
 
 
@@ -228,7 +228,8 @@ def test_unet_forward_bf16_label_agreement():
     x = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32).data.movedim(0, -1)[None]
     ref = np.asarray(jax_unet.apply_unet(jax_unet.fold_batchnorm(tree, jcfg),
                                          jnp.asarray(x.numpy()), jcfg, folded=True))
-    got = unet3d.apply_unet(unet3d.fold_batchnorm(params_from_jax(tree, tcfg), tcfg), x, tcfg)
+    got = unet3d.apply_unet(unet3d.fold_batchnorm(params_from_jax(tree, tcfg), tcfg), x, tcfg,
+                            folded=True)
     lab = lambda z: np.asarray(jax_sw.region_probs_to_labels(jax.nn.sigmoid(jnp.asarray(z))))
     ref_lab, got_lab = lab(ref), lab(got.numpy())
     assert (ref_lab > 0).mean() > 0.02, "degenerate: no foreground to compare"

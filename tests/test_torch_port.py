@@ -22,8 +22,10 @@ from braintpu_torch.io import nifti
 from braintpu_torch.models import unet3d
 from braintpu_torch.ops import _build
 from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
+from braintpu_torch.ops.int8_probe import int8_matmul, int8_matmul_ref
 from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
 from braintpu_torch.ops.upconv import upconv2x, upconv2x_ref
+from braintpu_torch.tools import probe
 from braintpu_torch.train.synthetic import write_synth_case
 
 REPO = Path(__file__).resolve().parent.parent
@@ -480,3 +482,71 @@ def test_gpu_two_model_engine_launches_both_new_kernels(cuda, tmp_path):
                 for s, st, co, c2 in unet3d.deferred_layers(unet3d.MODEL2_GN_LARGE, bucket))
     after = conv3d_tap_merged.launches, conv_stage.launches, upconv2x.launches
     assert tuple(a - b for a, b in zip(after, before)) == (3, stage, 10)
+
+
+def _int8_operands(seed, M, K, N):
+    """Seeded int8 operands over the whole range, -128 in a row and a column."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    y = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    x[0, :] = -128
+    y[:, 0] = -128
+    return x, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (256, 512, 384, 128, 128, 128),
+    (200, 80, 48, 8, 16, 16),  # ragged against the kernel's 128 x 128 x 64 tile
+    (3072, 384, 128, 128, 128, 128),
+    (1, 16, 16, 1, 16, 16),
+    (32, 24, 32, 8, 8, 8),  # K and N off 16: the byte-load path
+    (1000, 84, 50, 8, 10, 12),
+])
+def test_gpu_int8_kernel_is_bit_equal_to_plain_version(cuda, M, K, N, bm, bn, bk):
+    x, y = _int8_operands(M * N, M, K, N)
+    tx, ty = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    before = int8_matmul.launches
+    got = int8_matmul(tx, ty, bm=bm, bn=bn, bk=bk)
+    ref = int8_matmul_ref(tx, ty)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(got.cpu(), int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(y)))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_kernel_refuses_what_it_cannot_take(cuda):
+    # it refuses what the reference refuses, as the CPU path does
+    x = torch.zeros(32, 24, dtype=torch.int8, device=cuda)
+    y = torch.zeros(24, 32, dtype=torch.int8, device=cuda)
+    for bm, bn, bk in ((12, 8, 8), (8, 12, 8), (8, 8, 16)):
+        with pytest.raises(ValueError, match="must divide"):
+            int8_matmul(x, y, bm=bm, bn=bn, bk=bk)
+    with pytest.raises(TypeError):
+        int8_matmul(x.float(), y, bm=8, bn=8, bk=8)
+
+
+@pytest.mark.gpu
+def test_gpu_int8_kernel_takes_unaligned_and_strided_operands(cuda):
+    x, y = _int8_operands(7, 64, 48, 32)
+    # x one byte past a 16-byte boundary, y a transposed view
+    buf = torch.empty(64 * 48 + 1, dtype=torch.int8, device=cuda)
+    tx = buf[1:].view(64, 48)
+    tx.copy_(torch.from_numpy(x).to(cuda))
+    ty = torch.from_numpy(np.ascontiguousarray(y.T)).to(cuda).t()
+    assert tx.data_ptr() % 16 and not ty.is_contiguous()
+    got = int8_matmul(tx, ty, bm=16, bn=16, bk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(y)))
+
+
+@pytest.mark.gpu
+def test_gpu_probe_entry_point_launches_the_kernel(cuda, tmp_path, capsys):
+    log = tmp_path / "probe.jsonl"
+    before = int8_matmul.launches
+    assert probe.main(["int8", "--log", str(log)]) == 0
+    assert int8_matmul.launches > before
+    lines = [json.loads(ln) for ln in log.read_text().splitlines()]
+    assert [r["probe"] for r in lines] == [f"int8:{s[0]}" for s in probe.INT8_SHAPES]
+    assert all(r["ok"] for r in lines)
