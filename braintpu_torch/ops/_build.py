@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers: that keeps a build to seconds)
 under ``braintpu_torch/_build/``.  A library's file name carries a hash of its
-source and flags, so an edited source builds anew and an unchanged one is
-reused.  ``nvcc`` writes to a temporary name that is renamed into place, so
-an interrupted build leaves no partial library and no lock behind.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an edited
+source or header builds anew and an unchanged one is reused.  ``nvcc`` writes
+to a temporary name that is renamed into place, so an interrupted build leaves
+no partial library and no lock behind.
 
 Nothing builds at import time: the first launch of a kernel (or
 :func:`build_all`) does.
@@ -50,17 +51,23 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _ptxas_summary(log: str) -> str:
     """Registers, shared memory and spills from ``-Xptxas -v``, one line."""
-    used = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", log)
+    used = re.findall(r"Used (\d+) registers(?:[^\n]*?(\d+) bytes smem)?", log)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    parts = [f"registers={r} smem_bytes={s}" for r, s in used]
+    parts = [f"registers={r}" + (f" smem_bytes={s}" if s else "") for r, s in used]
     parts += [f"spill_stores={a} spill_loads={b}" for a, b in spills]
+    # wgmma serialised by ptxas (C7515, "Potential Performance Loss"): the
+    # main loop would lose its overlap
+    parts += sorted({ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                     if "wgmma" in ln and ("Performance Loss" in ln or "warning" in ln)})
     return " ".join(parts) or "ptxas printed no usage"
 
 

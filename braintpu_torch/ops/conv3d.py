@@ -5,9 +5,10 @@ Counterpart of ``braintpu/ops/conv3d_pallas.py::conv3d_tap_merged``: a SAME
 bias and f32 accumulation, an optional LeakyReLU fused into the epilogue,
 and bf16 output.  The CUDA source is ``csrc/conv3d_tap_merged.cu``.
 
-* :func:`conv3d_tap_merged` launches the kernel for CUDA tensors and calls
+* :func:`conv3d_tap_merged` launches the kernel for CUDA tensors, with the
+  launch plan of :func:`braintpu_torch.ops.conv_plan.conv_plan`, and calls
   the plain version for CPU tensors.  There is no fallback on the card: a
-  CUDA tensor the kernel cannot take raises.
+  CUDA tensor the kernel (or its plan) cannot take raises.
 * :func:`conv3d_tap_merged_ref` is the plain PyTorch version, used by the
   CPU path and as the kernel's yardstick on the card.
 * ``conv3d_tap_merged.launches`` counts kernel launches (not plain calls).
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_plan import conv_plan
 
 __all__ = ["conv3d_tap_merged", "conv3d_tap_merged_ref", "kernel_supported"]
 
@@ -89,15 +91,19 @@ def conv3d_tap_merged(
     y = torch.empty((N, D, H, W, co), dtype=torch.bfloat16, device=x.device)
     if y.numel() == 0:
         return y
+    plan = conv_plan(N, D, H, W, ci, co)
+    if plan is None:
+        raise ValueError(f"no launch plan for x {tuple(x.shape)} -> co={co}")
     lib = _lib()
     rc = lib.conv3d_tap_merged_launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         N, D, H, W, ci, co,
         float(negative_slope or 0.0), int(negative_slope is not None),
+        *plan.launch_args(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"conv3d_tap_merged launch failed: cudaError {rc}")
+        raise RuntimeError(f"conv3d_tap_merged launch failed: cudaError {rc} ({plan.describe()})")
     conv3d_tap_merged.launches += 1
     return y
 
@@ -111,5 +117,5 @@ def _lib() -> ctypes.CDLL:
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
     return lib

@@ -18,9 +18,10 @@ computes, on channels-last (NDHWC) bf16 tensors:
 Affines are shared ``(ci,)`` or per sample ``(N, ci)``.  The CUDA source is
 ``csrc/conv_stage.cu``.
 
-* :func:`conv_stage` launches the kernel for CUDA tensors and calls the
+* :func:`conv_stage` launches the kernel for CUDA tensors, with the launch
+  plan of :func:`braintpu_torch.ops.conv_plan.conv_plan`, and calls the
   plain version for CPU tensors.  There is no fallback on the card: a CUDA
-  tensor the kernel cannot take raises.
+  tensor the kernel (or its plan) cannot take raises.
 * :func:`conv_stage_ref` is the plain PyTorch version (the reference's
   oracle ``_xla_reference``), used by the CPU path and as the kernel's
   yardstick on the card.
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_plan import conv_plan
 
 __all__ = ["conv_stage", "conv_stage_ref", "stage_supported"]
 
@@ -172,6 +174,9 @@ def conv_stage(
         raise ValueError("conv_stage needs contiguous inputs, weights and affines")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("conv_stage needs 16-byte aligned inputs, weights and affines")
+    plan = conv_plan(N, D, H, W, ci1, co, ci2, stage=True)
+    if plan is None:
+        raise ValueError(f"no launch plan for x1 {tuple(x1.shape)}, ci2={ci2} -> co={co}")
     dev = x1.device
     y = torch.empty((N, D, H, W, co), dtype=torch.bfloat16, device=dev)
     s1 = torch.zeros((N, co), dtype=torch.float32, device=dev) if stats else None
@@ -186,10 +191,11 @@ def conv_stage(
         ptr(y), ptr(s1), ptr(s2),
         N, D, H, W, ci1, ci2, co, stride(a1, ci1), stride(a2, ci2),
         float(in1_slope or 0.0), float(in2_slope or 0.0), float(out_slope or 0.0), flags,
+        *plan.launch_args(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"conv_stage launch failed: cudaError {rc}")
+        raise RuntimeError(f"conv_stage launch failed: cudaError {rc} ({plan.describe()})")
     conv_stage.launches += 1
     return (y, s1, s2) if stats else y
 
@@ -203,5 +209,5 @@ def _lib() -> ctypes.CDLL:
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
     return lib

@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``braintpu_torch/csrc`` (nvcc, seconds,
-all at once), holds every kernel against its plain PyTorch version at the
-shapes the main paths give it, then drives the main paths on synthetic BraTS
+all at once) and checks that both 3x3x3 convolution libraries hold Hopper
+wgmma (``HGMMA`` in ``cuobjdump -sass``), holds every kernel against its
+plain PyTorch version at the shapes the main paths give it (printing each
+convolution's TF/s and launch plan: box, BM, BN, stages), then drives the main paths on synthetic BraTS
 cases: MODEL1_BN (full width, the two trained folds in
 ``results/trained_synth/checkpoints/model1``, fullconv mode, 8-flip mirror
 TTA), checked against the generator's ground truth; one full-width
@@ -91,11 +93,28 @@ def bucket_of(case_dir: Path):
     return info.cropped_shape, tuple(max(32, -(-s // 32) * 32) for s in info.cropped_shape)
 
 
+def sass_check(build) -> dict:
+    """Both 3x3x3 convolution libraries must hold Hopper wgmma (HGMMA) in
+    their SASS: a build that quietly kept mma.sync (HMMA) does not pass."""
+    home = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc").resolve().parent
+    cuobjdump = shutil.which("cuobjdump") or str(home / "cuobjdump")
+    found = {}
+    for name in ("conv3d_tap_merged", "conv_stage"):
+        lib = build._lib_path(name)
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        found[name] = sass.count("HGMMA")
+        if not found[name]:
+            raise AssertionError(f"no HGMMA in the SASS of {lib.name}: not the wgmma main loop")
+    return found
+
+
 def check_kernel(torch, shape, co, seed: int) -> dict:
     """The kernel against its plain version at one main-path shape, and its times."""
     import torch.nn.functional as F
 
     from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
+    from braintpu_torch.ops.conv_plan import conv_plan
 
     N, D, H, W, ci = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -126,7 +145,7 @@ def check_kernel(torch, shape, co, seed: int) -> dict:
         "shape": [N, D, H, W, ci, co], "max_abs_err": err, "tol": tol, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "tflops": flops / kernel_ms / 1e9,
+        "tflops": flops / kernel_ms / 1e9, "plan": conv_plan(N, D, H, W, ci, co).describe(),
     }
 
 
@@ -159,6 +178,7 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
     times beside the library sequence that computes the same function."""
     import torch.nn.functional as F
 
+    from braintpu_torch.ops.conv_plan import conv_plan
     from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
 
     N, D, H, W, ci1 = shape
@@ -208,7 +228,8 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
     bound_ms, bound_by = _bound(nbytes, flops)
     r.update({"shape": [N, D, H, W, ci1, ci2, co], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "library": "materialize + cat + F.conv3d bf16 + f32 sums",
-              "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kernel_ms / 1e9})
+              "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kernel_ms / 1e9,
+              "plan": conv_plan(N, D, H, W, ci1, co, ci2, stage=True).describe()})
     return r
 
 
@@ -363,6 +384,7 @@ def main() -> int:
 
     with phase("2 build"):
         print(f"sources: {_build.build_all()} -> {_build.BUILD_DIR.relative_to(ROOT)}")
+        print(f"HGMMA instructions in the SASS: {sass_check(_build)}")
 
     with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
         tmp = Path(tmp)

@@ -252,6 +252,38 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     assert re.fullmatch(r"libk-[0-9a-f]{16}\.so", p2.name)
 
 
+def test_build_hash_follows_the_shared_headers(tmp_path, monkeypatch):
+    # a source that includes csrc/*.cuh builds anew when the header changes;
+    # build_all still builds the *.cu sources only
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "a.cu").write_text('#include "loop.cuh"\n')
+    (tmp_path / "b.cu").write_text('#include "loop.cuh"\n')
+    (tmp_path / "loop.cuh").write_text("// v1\n")
+    before = {n: _build._lib_path(n) for n in ("a", "b")}
+    (tmp_path / "loop.cuh").write_text("// v2\n")
+    after = {n: _build._lib_path(n) for n in ("a", "b")}
+    assert all(before[n] != after[n] for n in ("a", "b"))
+    assert after == {n: _build._lib_path(n) for n in ("a", "b")}  # stable while unchanged
+    monkeypatch.setattr(_build, "_start", lambda name: pytest.fail(f"built {name}"))
+    for n in ("a", "b"):
+        after[n].parent.mkdir(parents=True, exist_ok=True)
+        after[n].touch()
+    assert _build.build_all() == ["a", "b"]  # the header is no source of its own
+
+
+def test_the_conv_kernels_share_the_wgmma_main_loop():
+    for name in ("conv3d_tap_merged", "conv_stage"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "conv3d_wgmma.cuh"' in text
+        assert "mma.sync" not in text
+    loop = (_build.CSRC / "conv3d_wgmma.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.5d", "mbarrier.try_wait.parity",
+                "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE"):
+        assert ptx in loop, ptx
+    assert "NAN_REQUEST_ZERO_FMA" not in loop
+
+
 def test_build_without_nvcc_raises_and_leaves_nothing(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -268,6 +300,19 @@ def test_ptxas_summary_reads_registers_smem_and_spills():
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Used 80 registers, used 1 barriers, 29696 bytes smem, 400 bytes cmem[0]\n")
     assert _build._ptxas_summary(log) == "registers=80 smem_bytes=29696 spill_stores=0 spill_loads=0"
+
+
+def test_ptxas_summary_reads_dynamic_smem_kernels_and_wgmma_notices():
+    # the wgmma kernels use dynamic shared memory only (no "bytes smem"), and
+    # ptxas's notice that it serialised wgmma must reach the build line
+    log = ("ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]\n"
+           "    104 bytes stack frame, 160 bytes spill stores, 212 bytes spill loads\n"
+           "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions "
+           "are serialized due to insufficient register resources for the function 'k'\n")
+    assert _build._ptxas_summary(log) == (
+        "registers=168 spill_stores=160 spill_loads=212 (C7512) Potential Performance Loss: "
+        "wgmma.mma_async instructions are serialized due to insufficient register resources "
+        "for the function 'k'")
 
 
 def test_every_cuda_source_has_a_c_launcher():
