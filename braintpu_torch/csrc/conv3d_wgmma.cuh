@@ -1,7 +1,9 @@
 // Shared Hopper main loop of the two 3x3x3 convolution kernels
 // (conv3d_tap_merged.cu, conv_stage.cu): a warp-specialised implicit GEMM
 // on wgmma, fed by TMA through an mbarrier ring.  Included by both
-// sources; it defines no launcher of its own.
+// sources; it defines no launcher of its own.  upconv2x.cu and
+// int8_matmul.cu include it for its PTX wrappers (mbarriers, TMA loads and
+// stores, descriptors, wgmma) and keep their own main loops.
 //
 // GEMM view.  M = output voxels, N = co, K = 27 taps x channels.  A block
 // owns BM output voxels (a box bd x bh x bw inside one sample, not BM
@@ -154,6 +156,63 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The loads and stores below serve the up-conv (upconv2x.cu) and the int8
+// product (int8_matmul.cu), which include this header for its wrappers only.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared -> global tensor store, one bulk group per commit; elements
+// outside the map's bounds are not written.  `policy` is an L2 eviction
+// policy (l2_evict_first(): data written once and not read back soon).
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4, %5, %6}], [%1], %7;\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// All but the newest N bulk groups have finished reading shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory become visible to TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier over `threads` threads of the block (id 0 is __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -180,16 +239,19 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
          (2ull << 62);
 }
 
-// wgmma m64nNk16 bf16 -> f32, accumulating (scale-d = 1).  B comes from
-// shared memory, N-major through the transpose bit; A from shared memory,
-// K-major (SS), or from registers (RS).
+// wgmma m64nNk16 bf16 -> f32, accumulating (scale-d = 1; SS takes
+// scale_d = 0 to overwrite d instead, which spares zeroing the accumulators
+// with ordinary instructions).  B comes from shared memory, N-major through
+// the transpose bit; A from shared memory, K-major (SS), or from registers
+// (RS).
 template <int N>
-__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db);
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d = 1);
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
 
 template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -200,11 +262,12 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64
       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -219,11 +282,12 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -246,11 +310,12 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint6
       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
@@ -277,11 +342,12 @@ __device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t da, uint6
       "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
       "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
       "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da, uint64_t db,
+                                                  int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -320,7 +386,7 @@ __device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da, uint
       "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
       "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>

@@ -5,228 +5,393 @@
 // Replaces the TPU kernel braintpu/ops/upconv_pallas.py::upconv2x (bodies
 // `_kernel` and `_kernel_lanes`), which computes the same function:
 //   out[n, 2d+kd, 2h+kh, 2w+kw, c] = sum_ci x[n, d, h, w, ci] * w[ci, kd, kh, kw, c].
-// Python wrapper: braintpu_torch/ops/upconv.py.
+// Python wrapper: braintpu_torch/ops/upconv.py; launch plan:
+// braintpu_torch/ops/upconv_plan.py.
 //
 // Bound on an H100 SXM (989 TF/s dense bf16, 3.35 TB/s HBM).  Per input
 // voxel the kernel does 2*ci*8*co flops and moves 2*ci bytes in and
-// 16*co bytes out: 2*8*ci*co / (2*ci + 16*co) < ci flops/byte, below the
-// card's ~295 for every up-conv of the two models (ci <= 320), so it is
-// bytes-bound, mostly by the output, which has 8x the input's voxels.  At
-// the level-0 up-conv of a 224x224x128 forward of the GroupNorm model
-// (112x112x64x64 -> 224x224x128x64) that is 0.92 GB, 0.27 ms at 3.35 TB/s.
-// The design therefore writes each output byte once, in 16-byte runs, and
-// lets no shuffle pass touch device memory.
+// 16*co bytes out: 51-235 flops per byte on the two models' up-convs,
+// below the card's ~295, so every shape is bound by bytes, mostly by the
+// output (8x the input's voxels).  The level-0 up-conv of the GroupNorm
+// model at the 224x224x128 bucket (112x112x64x64 -> 224x224x128x64) moves
+// 0.925 GB: 0.276 ms at 3.35 TB/s.  So the design reads x once, writes
+// each output byte once in whole runs, and keeps the products off the
+// critical path.
 //
-// Design.  A GEMM with M = N*D*H*W input voxels, K = ci, N = 8*co whose
-// column j = ((kd*2 + kh)*2 + kw)*co + c.  A block owns 128 rows x 64
-// columns, walks K in chunks of 32 with cp.async double buffering into
-// shared memory (zero-filled past the edges) and runs bf16 mma.sync
-// m16n8k16 into f32 registers, as conv3d_tap_merged.cu does.  Column tiles
-// vary fastest in the grid, so the blocks that share an input tile run
-// together and find it in L2.  For a fixed (kd, kh) the 2*co columns
-// (kw, c) of a row are one contiguous run of the output at
-// (n, 2d+kd, 2h+kh, 2w, 0) -- the reference's "lanes" layout -- so the
-// epilogue rounds the tile to bf16 in shared memory and writes each row's
-// 16-byte chunks straight to their run: the pixel shuffle costs no pass.
+// GEMM view (the reference's "lanes" layout): M = input voxels, K = ci,
+// N = 8*co with column j = ((kd*2 + kh)*2 + kw)*co + c.  For a fixed phase
+// pair (kd, kh) the 2*co columns (kw, c) of a row are one contiguous run of
+// the output, so the output is the 5-D view
+//   (2co [kw,c], W [w], 2 [kh], H [h], N*2D [2(n*D + d) + kd])
+// of (N, 2D, 2H, 2W, co), and a tile's result for one phase pair is one
+// box of that view.
+//
+// Design: a persistent, warp-specialised block on one SM.
+//   * Tiles: bh x bw input voxels of one (n, d) slice, at most 64 (whole W
+//     rows when W <= 64).  Block b serves column group b % splits and
+//     walks its tiles with a static stride; its tiles go in turn to NC = 2
+//     consumer warpgroups.
+//   * Warpgroup 0 is the producer: one thread first loads the group's
+//     weights by TMA (resident: the B columns of sg slices of nb columns,
+//     N-major as stored, for every K chunk) and then keeps a ring of
+//     `stages` A tiles full: one 4-D TMA box (64 c x bw x bh x 1) per
+//     64-channel chunk, 128-byte swizzle, zeros past ci and past the
+//     volume.  full/empty mbarriers hand the tiles over; x is read once
+//     per column group (once when the whole B fits).  `stages` is a
+//     multiple of NC, so a stage always serves the same consumer and its
+//     parity waits come in order.
+//   * Each consumer warpgroup runs, per tile and slice, wgmma m64nNBk16
+//     (both operands from shared memory; B through the descriptor's
+//     transpose bit, as conv3d_wgmma.cuh reads its weights), rounds the f32
+//     accumulators to bf16 into a 128-byte-swizzled staging buffer laid
+//     out as the output box (conflict-free), and one thread stores it by
+//     TMA (cp.async.bulk.tensor shared -> global, 64-column boxes, L2
+//     evict-first: the output is not read back by this kernel).  Two
+//     staging buffers per consumer: a slice's store overlaps the next
+//     slice's products; `wait_group.read` guards a buffer's reuse.  Ragged
+//     H, W and run edges are clipped by the output map's bounds.  On the
+//     large shapes the SM's TMA unit, which carries both the tile loads and
+//     these stores, paces the loop: the kernel writes at 2.5-2.7 TB/s on
+//     an H100 80GB HBM3 at 700 W (PERF.md).
+//   * Streamed mode (no model shape: ci too large for one resident slice
+//     beside two A tiles): each ring stage holds one 64-channel chunk of A
+//     and of one slice's B, and consumer 0 takes every tile.
+// The plan (tile, nb, sg, stages, streamed, shared memory, grid) comes from
+// upconv_plan.py and is checked here; the shared-memory layout must match
+// its upconv_plan_smem_bytes().
 //
 // Contract (checked by the wrapper): x (N,D,H,W,ci) bf16 contiguous,
 // w (ci,2,2,2,co) bf16 contiguous (read as (ci, 8*co)), y (N,2D,2H,2W,co)
 // bf16 allocated by the caller; ci % 8 == 0, co % 8 == 0, 16-byte aligned
 // pointers.  The kernel allocates nothing and runs on the caller's stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3d_wgmma.cuh"
 
 namespace {
 
-constexpr int BM = 128;        // input voxels (GEMM rows) per block
-constexpr int BN = 64;         // GEMM columns per block
-constexpr int BK = 32;         // input channels per K step
-constexpr int THREADS = 256;   // 8 warps: 4 along M x 2 along N, 32x32 each
-constexpr int A_LD = BK + 8;   // 80-byte row pitch: conflict-free ldmatrix
-constexpr int B_LD = BN + 8;   // 144-byte row pitch
-constexpr int C_LD = BN + 8;   // epilogue tile pitch (reuses sA)
-static_assert(BM * C_LD <= 2 * BM * A_LD, "epilogue tile must fit in the A buffers");
+using namespace conv3d_wgmma;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+constexpr int ROWS = 64;                // input voxels per tile
+constexpr int NC = 2;                   // consumer warpgroups
+constexpr int BUFS = 2;                 // staging buffers per consumer
+constexpr int THREADS = 128 * (1 + NC);
+constexpr int CHUNK = ROWS * ROW_BYTES;  // one tile's 64-channel chunk: 8 KiB
+constexpr int UP_MAX_STAGES = 6;
+
+struct UpArgs {
+  int N, D, H, W, ci, co;
+  int kc, sp, slices, sg, splits, stages;
+  int bh, bw, th, tw;
+  long long tiles;
+};
+
+// Shared-memory bytes of a plan; ops/upconv_plan.py computes the same.
+inline long long up_smem_bytes(int kc, int nb, int sg, int stages, bool stream) {
+  long long b = ALIGN_SLACK + static_cast<long long>(BUFS) * NC * nb * 128 + (2LL * stages + 1) * 8;
+  if (stream) return b + static_cast<long long>(stages) * (CHUNK + nb * 128);
+  return b + static_cast<long long>(sg) * kc * nb * 128 + static_cast<long long>(stages) * kc * CHUNK;
 }
 
-// 16-byte async copy; copies zeros when `pred` is false (src-size 0).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(THREADS)
-upconv2x_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                __nv_bfloat16* __restrict__ y, int D, int H, int W, int ci, int co,
-                long long M, int col_tiles) {
-  __shared__ __align__(16) __nv_bfloat16 sA[2][BM][A_LD];
-  __shared__ __align__(16) __nv_bfloat16 sB[2][BK][B_LD];
+template <int NB, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1)
+    upconv2x_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                    const __grid_constant__ CUtensorMap my, const UpArgs p) {
+  constexpr int NACC = NB / 2;
+  constexpr int BCHUNK = NB * ROW_BYTES;  // one slice's B for one 64-channel chunk
+  constexpr int STG = ROWS * NB * 2;      // one staging buffer
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int S = p.stages;
+  const int slot_bytes = STREAM ? CHUNK + BCHUNK : p.kc * CHUNK;
+  uint8_t* sB = smem;  // resident weights
+  uint8_t* sA = sB + (STREAM ? 0 : p.sg * p.kc * BCHUNK);
+  uint8_t* sC = sA + S * slot_bytes;  // staging, BUFS buffers per consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(sC + BUFS * NC * STG);
+  uint64_t* empty = full + S;
+  uint64_t* bfull = empty + S;
 
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int ncols = 8 * co;
-  const int n0 = (blockIdx.x % col_tiles) * BN;
-  const long long m0 = static_cast<long long>(blockIdx.x / col_tiles) * BM;
-
-  // A tile: BM rows x 4 chunks of 8 channels, 2 chunks per thread.
-  const int a_kc = tid & 3;
-  int a_row[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    a_row[j] = (tid >> 2) + j * (THREADS / 4);
-    a_ok[j] = m0 + a_row[j] < M;
-  }
-  // B tile: BK rows x 8 chunks of 8 columns, one chunk per thread.
-  const int b_k = tid >> 3;
-  const int b_c = (tid & 7) * 8;
-  const bool b_col_ok = (n0 + b_c) < ncols;
-
-  const int iters = (ci + BK - 1) / BK;
-  auto load_stage = [&](int stage, int it) {
-    const int c0 = it * BK;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = c0 + a_kc * 8;
-      const bool ok = a_ok[j] && c < ci;
-      const __nv_bfloat16* src = ok ? x + (m0 + a_row[j]) * ci + c : x;
-      cp_async16(smem_addr(&sA[stage][a_row[j]][a_kc * 8]), src, ok);
-    }
-    const int k = c0 + b_k;
-    const bool okb = b_col_ok && k < ci;
-    const __nv_bfloat16* srcb = okb ? w + static_cast<long long>(k) * ncols + n0 + b_c : w;
-    cp_async16(smem_addr(&sB[stage][b_k][b_c]), srcb, okb);
+  const int grp = blockIdx.x % p.splits;
+  const int first = blockIdx.x / p.splits;
+  const int cnt = gridDim.x / p.splits + (grp < static_cast<int>(gridDim.x % p.splits) ? 1 : 0);
+  const int s0 = grp * p.sg;
+  const int sgc = min(p.sg, p.slices - s0);
+  const int takers = STREAM ? 1 : NC;  // consumer warpgroups that take tiles
+  const int reps = STREAM ? sgc * p.kc : 1;  // ring stages per tile
+  const uint32_t a_box = static_cast<uint32_t>(p.bh * p.bw * ROW_BYTES);
+  const int per_slice = p.th * p.tw;
+  auto col0 = [&](int gs) { return (gs / p.sp) * 2 * p.co + (gs % p.sp) * NB; };
+  // The block's k-th tile, -1 past its last: a static stride over the tiles
+  // (neighbouring blocks on neighbouring tiles)
+  auto tile_at = [&](long long k) -> long long {
+    const long long t = first + k * cnt;
+    return t < p.tiles ? t : -1;
   };
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < iters; ++it) {
-    if (it + 1 < iters) load_stage((it + 1) & 1, it + 1);
-    cp_async_commit();  // possibly empty group keeps the wait count uniform
-    cp_async_wait_1();
-    __syncthreads();
-    const int st = it & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4];
-      uint32_t bfm[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int row = wm * 32 + mi * 16 + (lane & 15);
-        const int col = kk + (lane >> 4) * 8;
-        ldmatrix_x4(af[mi], smem_addr(&sA[st][row][col]));
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int ncol = wn * 32 + nj * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(bfm[nj], smem_addr(&sB[st][krow][ncol]));
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16_16816(acc[mi][ni], af[mi], bfm[ni >> 1][(ni & 1) * 2],
-                         bfm[ni >> 1][(ni & 1) * 2 + 1]);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 4);  // lane 0 of each warp of the consuming warpgroup
     }
-    __syncthreads();
+    mbar_init(smem_u32(bfull), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread -------------------------------------------
+    if (tid == 0) {
+      if (!STREAM) {
+        const uint32_t bb = smem_u32(bfull);
+        mbar_expect_tx(bb, static_cast<uint32_t>(sgc * p.kc * BCHUNK));
+        for (int s = 0; s < sgc; ++s)
+          for (int q = 0; q < p.kc; ++q)
+#pragma unroll
+            for (int i = 0; i < NB / B_BOX; ++i)
+              tma_load_2d(smem_u32(sB + (s * p.kc + q) * BCHUNK + i * B_BOX * ROW_BYTES), &mw,
+                          bb, col0(s0 + s) + i * B_BOX, q * KC);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long k = 0;; ++k) {
+        const long long t = tile_at(k);
+        if (t < 0) break;
+        const int nd = static_cast<int>(t / per_slice);
+        const int rem = static_cast<int>(t % per_slice);
+        const int h0 = rem / p.tw * p.bh, w0 = rem % p.tw * p.bw;
+        for (int r = 0; r < reps; ++r) {
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t fb = smem_u32(&full[stage]);
+          uint8_t* slot = sA + stage * slot_bytes;
+          if (STREAM) {
+            const int s = r / p.kc, q = r % p.kc;
+            mbar_expect_tx(fb, a_box + BCHUNK);
+            tma_load_4d(smem_u32(slot), &mx, fb, q * KC, w0, h0, nd);
+#pragma unroll
+            for (int i = 0; i < NB / B_BOX; ++i)
+              tma_load_2d(smem_u32(slot + CHUNK + i * B_BOX * ROW_BYTES), &mw, fb,
+                          col0(s0 + s) + i * B_BOX, q * KC);
+          } else {
+            mbar_expect_tx(fb, p.kc * a_box);
+            for (int q = 0; q < p.kc; ++q)
+              tma_load_4d(smem_u32(slot + q * CHUNK), &mx, fb, q * KC, w0, h0, nd);
+          }
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
   }
 
-  // Epilogue: round the tile to bf16 in shared memory (the A buffers are
-  // free after the last barrier), then write 16-byte chunks to their runs.
-  __nv_bfloat16(*sC)[C_LD] = reinterpret_cast<__nv_bfloat16(*)[C_LD]>(&sA[0][0][0]);
+  // ---- consumers ------------------------------------------------------------
+  const int c = wg - 1;
+  if (c >= takers) return;
+  const int ctid = tid & 127;
+  const int warp = ctid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  uint8_t* stg = sC + c * BUFS * STG;
+  const uint64_t policy = l2_evict_first();  // the output streams through L2
+  if (!STREAM) mbar_wait(smem_u32(bfull), 0);
+  float acc[NACC];
+  int stores = 0;
+  for (long long k = c;; k += takers) {  // k: the block's own tile index
+    const long long t = tile_at(k);
+    if (t < 0) break;
+    const int nd = static_cast<int>(t / per_slice);
+    const int rem = static_cast<int>(t % per_slice);
+    const int h0 = rem / p.tw * p.bh, w0 = rem % p.tw * p.bw;
+    for (int s = 0; s < sgc; ++s) {
+      // the slice's first product overwrites acc (scale-d = 0): no zeroing
+      // instructions among the wgmmas, which ptxas would serialise
+      if (STREAM) {
+        for (int q = 0; q < p.kc; ++q) {
+          const long long idx = k * reps + s * p.kc + q;
+          const int st = static_cast<int>(idx % S);
+          mbar_wait(smem_u32(&full[st]), static_cast<uint32_t>((idx / S) & 1));
+          const uint32_t base = smem_u32(sA + st * slot_bytes);
+          wgmma_fence();
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+          for (int kk = 0; kk < KC / 16; ++kk)
+            wgmma_ss<NB>(acc, desc_a(base + kk * 32), desc_b(base + CHUNK + kk * 16 * 64),
+                         q > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+        }
+      } else {
+        const int st = static_cast<int>(k % S);
+        if (s == 0) mbar_wait(smem_u32(&full[st]), static_cast<uint32_t>((k / S) & 1));
+        const uint32_t a_base = smem_u32(sA + st * slot_bytes);
+        const uint32_t b_base = smem_u32(sB + s * p.kc * BCHUNK);
+        wgmma_fence();
+        for (int q = 0; q < p.kc; ++q) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 32 + mi * 16 + (lane >> 2) + half * 8;
-        const int c = wn * 32 + ni * 8 + (lane & 3) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(&sC[r][c]) =
-            __floats2bfloat162_rn(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
+          for (int kk = 0; kk < KC / 16; ++kk)
+            wgmma_ss<NB>(acc, desc_a(a_base + q * CHUNK + kk * 32),
+                         desc_b(b_base + q * BCHUNK + kk * 16 * 64), q > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (s == sgc - 1 && lane == 0) mbar_arrive(smem_u32(&empty[st]));
       }
-  __syncthreads();
-  const int run = 2 * co;  // columns per (kd, kh) phase pair
-  for (int idx = tid; idx < BM * (BN / 8); idx += THREADS) {
-    const int r = idx / (BN / 8);
-    const int cc = (idx % (BN / 8)) * 8;
-    const long long m = m0 + r;
-    const int col = n0 + cc;
-    if (m >= M || col >= ncols) continue;
-    long long t = m;
-    const int ww = static_cast<int>(t % W);
-    t /= W;
-    const int hh = static_cast<int>(t % H);
-    t /= H;
-    const int dd = static_cast<int>(t % D);
-    const long long nn = t / D;
-    const int ph = col / run;  // kd * 2 + kh; a chunk never straddles two runs
-    const int within = col - ph * run;
-    const long long dst =
-        (((nn * 2 * D + 2 * dd + (ph >> 1)) * 2 * H + 2 * hh + (ph & 1)) * 2 * W + 2 * ww) * co +
-        within;
-    *reinterpret_cast<uint4*>(y + dst) = *reinterpret_cast<const uint4*>(&sC[r][cc]);
+
+      // ---- epilogue: acc[4j + 2i + e] is row 16 warp + g + 8i, column
+      // 8j + 2 t4 + e.  The staging buffer holds NB/64 boxes of 64 rows x
+      // 128 bytes, 16-byte chunk q of row r at (q ^ (r & 7)): TMA's
+      // 128-byte swizzle, and no bank conflict for the 8 rows of a warp.
+      uint8_t* buf = stg + (stores % BUFS) * STG;
+      if (ctid == 0) bulk_wait_read<BUFS - 1>();  // the store that last read `buf` is done with it
+      named_barrier(1 + c, 128);
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = warp * 16 + g + 8 * i;
+          const int off = (j >> 3) * (ROWS * ROW_BYTES) + r * ROW_BYTES +
+                          (((j & 7) ^ (r & 7)) << 4) + 4 * t4;
+          *reinterpret_cast<__nv_bfloat162*>(buf + off) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1 + c, 128);
+      if (ctid == 0) {
+        const int gs = s0 + s;
+        const int ph = gs / p.sp, j0 = (gs % p.sp) * NB;
+#pragma unroll
+        for (int b = 0; b < NB / 64; ++b) {
+          if (j0 + 64 * b < 2 * p.co)
+            tma_store_5d(&my, smem_u32(buf + b * ROWS * ROW_BYTES), j0 + 64 * b, w0, ph & 1, h0,
+                         2 * nd + (ph >> 1), policy);
+        }
+        bulk_commit();
+      }
+      ++stores;
+    }
   }
+  if (ctid == 0) bulk_wait_all();
+}
+
+// 4-D map of x viewed (N*D, H, W, ci): box 64 c x bw x bh x 1, 128-byte
+// swizzle, zeros outside.
+bool encode_x(CUtensorMap* m, const void* x, int N, int D, int H, int W, int ci, int bh, int bw) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t e = 2;
+  cuuint64_t dims[4] = {(cuuint64_t)ci, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N * D};
+  cuuint64_t strides[3] = {ci * e, (cuuint64_t)W * ci * e, (cuuint64_t)H * W * ci * e};
+  cuuint32_t box[4] = {(cuuint32_t)KC, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  cuuint32_t one[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 2-D map (8co, ci) of the weights as stored: box 32 columns x 64 c,
+// 64-byte swizzle (the layout desc_b reads), zeros past ci and 8co.
+bool encode_w(CUtensorMap* m, const void* w, int ci, int co) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)8 * co, (cuuint64_t)ci};
+  cuuint64_t strides[1] = {(cuuint64_t)16 * co};
+  cuuint32_t box[2] = {(cuuint32_t)B_BOX, (cuuint32_t)KC};
+  cuuint32_t one[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 5-D map of y viewed (2co, W, 2, H, N*2D) (the lanes view): box 64 columns
+// x bw x 1 x bh x 1, 128-byte swizzle; stores clip at its bounds.
+bool encode_y(CUtensorMap* m, void* y, int N, int D, int H, int W, int co, int bh, int bw) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t c = static_cast<cuuint64_t>(co) * 2;  // bytes of co bf16
+  cuuint64_t dims[5] = {(cuuint64_t)2 * co, (cuuint64_t)W, 2, (cuuint64_t)H, (cuuint64_t)2 * N * D};
+  cuuint64_t strides[4] = {2 * c, 2 * W * c, 4 * W * c, 4ull * H * W * c};
+  cuuint32_t box[5] = {64, (cuuint32_t)bw, 1, (cuuint32_t)bh, 1};
+  cuuint32_t one[5] = {1, 1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, y, dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Fill the plan fields of `p` from the host's plan and check it; false on
+// a plan this code cannot take.
+bool up_plan_ok(UpArgs& p, int bh, int bw, int nb, int sg, int stages, bool stream,
+                long long smem, int grid) {
+  if (p.N <= 0 || p.D <= 0 || p.H <= 0 || p.W <= 0 || p.ci <= 0 || p.co <= 0) return false;
+  if (p.ci % 8 || p.co % 8 || 2LL * p.N * p.D > 0x7fffffffLL) return false;
+  if (bh < 1 || bw < 1 || bh * bw > ROWS || bh > p.H || bw > p.W) return false;
+  if (nb != 64 && nb != 128) return false;
+  // with resident B each stage serves one consumer: stages % NC == 0
+  if (stages < 2 || stages > UP_MAX_STAGES || (!stream && stages % NC)) return false;
+  p.kc = (p.ci + KC - 1) / KC;
+  p.sp = (2 * p.co + nb - 1) / nb;
+  p.slices = 4 * p.sp;
+  if (sg < 1 || sg > p.slices || (stream && sg != 1)) return false;
+  p.sg = sg;
+  p.splits = (p.slices + sg - 1) / sg;
+  p.stages = stages;
+  p.bh = bh, p.bw = bw;
+  p.th = (p.H + bh - 1) / bh;
+  p.tw = (p.W + bw - 1) / bw;
+  p.tiles = static_cast<long long>(p.N) * p.D * p.th * p.tw;
+  if (p.tiles > 0x7fffffffLL || grid < p.splits) return false;
+  return smem == up_smem_bytes(p.kc, nb, sg, stages, stream) && smem <= SMEM_LIMIT;
+}
+
+// Launch one instantiation; its dynamic shared-memory limit is raised to
+// the card's maximum on its first launch only (the call costs host time).
+template <int NB, bool STREAM>
+int start(dim3 grid, long long smem, cudaStream_t stream, const CUtensorMap& mx,
+          const CUtensorMap& mw, const CUtensorMap& my, const UpArgs& p) {
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(upconv2x_kernel<NB, STREAM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               SMEM_LIMIT);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised = true;
+  }
+  upconv2x_kernel<NB, STREAM><<<grid, THREADS, static_cast<size_t>(smem), stream>>>(mx, mw, my, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t passed as an integer handle).  Returns
-// cudaGetLastError() as an int: 0 when the launch was accepted.
-extern "C" int upconv2x_launch(const void* x, const void* w, void* y, int N, int D, int H, int W,
-                               int ci, int co, void* stream) {
-  const long long M = static_cast<long long>(N) * D * H * W;
-  const int col_tiles = (8 * co + BN - 1) / BN;
-  const long long tiles = (M + BM - 1) / BM * col_tiles;
-  if (tiles <= 0 || tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  upconv2x_kernel<<<static_cast<unsigned>(tiles), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), D, H, W, ci, co, M, col_tiles);
-  return static_cast<int>(cudaGetLastError());
+// Launch on `stream` (a cudaStream_t passed as an integer handle).  `a`
+// holds the shape and the plan of upconv_plan.py:
+//   N, D, H, W, ci, co, bh, bw, nb, sg, stages, streamed, smem, grid
+// (UpconvPlan.launch_args() after the shape).  Returns cudaGetLastError()
+// as an int: 0 when the launch was accepted, cudaErrorInvalidValue for a
+// plan it cannot take.
+extern "C" int upconv2x_launch(const void* x, const void* w, void* y, const long long* a,
+                               void* stream) {
+  UpArgs p = {};
+  for (int i = 0; i < 14; ++i)
+    if (a[i] < 0 || a[i] > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.N = (int)a[0], p.D = (int)a[1], p.H = (int)a[2], p.W = (int)a[3], p.ci = (int)a[4], p.co = (int)a[5];
+  const int bh = (int)a[6], bw = (int)a[7], nb = (int)a[8], sg = (int)a[9], stages = (int)a[10];
+  const bool streamed = a[11] != 0;
+  const long long smem = a[12];
+  const int grid = (int)a[13];
+  if (!up_plan_ok(p, bh, bw, nb, sg, stages, streamed, smem, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw, my;
+  if (!encode_x(&mx, x, p.N, p.D, p.H, p.W, p.ci, bh, bw) || !encode_w(&mw, w, p.ci, p.co) ||
+      !encode_y(&my, y, p.N, p.D, p.H, p.W, p.co, bh, bw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 g(static_cast<unsigned>(grid));
+  if (nb == 64)
+    return streamed ? start<64, true>(g, smem, s, mx, mw, my, p)
+                    : start<64, false>(g, smem, s, mx, mw, my, p);
+  return streamed ? start<128, true>(g, smem, s, mx, mw, my, p)
+                  : start<128, false>(g, smem, s, mx, mw, my, p);
 }

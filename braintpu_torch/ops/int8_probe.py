@@ -3,8 +3,15 @@
 Counterpart of ``braintpu/ops/int8_probe.py::int8_matmul``: (M, K) int8 x
 (K, N) int8 -> (M, N) int32, exact.  Like the reference it is a throughput
 probe with no production caller; ``python -m braintpu_torch.tools.probe
-int8`` runs it.  The CUDA source is ``csrc/int8_matmul.cu`` (m16n8k32 s8
-``mma.sync``; the tile of ``y`` is transposed in shared memory).
+int8`` runs it.  The CUDA source is ``csrc/int8_matmul.cu``.  Two routes,
+chosen by :func:`int8_route` from the shapes and addresses alone:
+
+* ``"wgmma"`` (K % 16 == 0, N % 16 == 0, both operands 16-byte aligned,
+  as TMA needs): a transpose kernel writes ``y^T`` into scratch allocated
+  here, then a persistent wgmma GEMM (m64n256k32 s8, TMA ring) takes both
+  operands K-major.  Two launches per call.
+* ``"bytes"``: every other valid call, one launch of the byte-load
+  ``mma.sync`` kernel.
 
 * :func:`int8_matmul` launches the kernel for CUDA tensors and calls the
   plain version for CPU tensors.  There is no fallback on the card: the
@@ -12,7 +19,9 @@ int8`` runs it.  The CUDA source is ``csrc/int8_matmul.cu`` (m16n8k32 s8
   contiguous first), and an invalid one raises on both devices alike.
 * :func:`int8_matmul_ref` is the plain PyTorch version, used by the CPU path
   and as the kernel's yardstick on the card.
-* ``int8_matmul.launches`` counts kernel launches (not plain calls).
+* ``int8_matmul.launches`` counts the calls that reached the kernels (one
+  per call on either route, though the fast route launches two kernels),
+  not plain calls.
 
 The reference's block sizes ``bm``, ``bn`` and ``bk`` (512 by default) only
 gate validity here, with the reference's own rule (M, N and K divisible by
@@ -28,7 +37,18 @@ import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_ref"]
+__all__ = ["int8_matmul", "int8_matmul_ref", "int8_route", "SMS", "G_BM", "G_BN"]
+
+SMS = 132         # streaming multiprocessors of an H100 SXM: the GEMM's persistent grid
+G_BM, G_BN = 128, 256  # the wgmma GEMM's output tile (csrc/int8_matmul.cu)
+
+
+def int8_route(M: int, N: int, K: int, x_ptr: int = 0, y_ptr: int = 0) -> str:
+    """``"wgmma"`` where TMA can read both operands (K and N multiples of
+    16, 16-byte aligned addresses), else ``"bytes"``."""
+    if K % 16 == 0 and N % 16 == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0:
+        return "wgmma"
+    return "bytes"
 
 
 def int8_matmul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -70,8 +90,15 @@ def int8_matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    rc = _lib().int8_matmul_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                                   torch.cuda.current_stream(x.device).cuda_stream)
+    launch, raw_stream = _launcher or _bind()
+    stream = raw_stream(x.device.index)
+    if int8_route(M, N, K, x.data_ptr(), y.data_ptr()) == "wgmma":
+        yt = x.new_empty((N, K))
+        tiles = -(-M // G_BM) * -(-N // G_BN)
+        rc = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K, yt.data_ptr(),
+                    min(tiles, SMS), stream)
+    else:
+        rc = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K, None, 0, stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError {rc}")
     int8_matmul.launches += 1
@@ -80,11 +107,16 @@ def int8_matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
 
 int8_matmul.launches = 0
 
+_launcher = None
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("int8_matmul")
-    fn = lib.int8_matmul_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return lib
+
+def _bind():
+    """Bind the C launcher once (building the library on first use), with
+    the raw handle of the device's current stream."""
+    global _launcher
+    fn = _build.load_library("int8_matmul").int8_matmul_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
+                                                                ctypes.c_void_p]
+    _launcher = fn, torch._C._cuda_getCurrentRawStream
+    return _launcher

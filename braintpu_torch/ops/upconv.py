@@ -6,8 +6,9 @@ up-convolution without bias,
 on channels-last (NDHWC) bf16 input with ``(ci, 2, 2, 2, co)`` bf16 weights,
 f32 accumulation and bf16 output.  The windows do not overlap, so it is one
 GEMM (ci -> 8 co) whose result is pixel-shuffled into the 2x output; the
-kernel writes the shuffle from its epilogue.  The CUDA source is
-``csrc/upconv2x.cu``.
+kernel writes the shuffle from its epilogue (TMA stores of whole output
+runs).  The CUDA source is ``csrc/upconv2x.cu``, its launch plan
+:func:`braintpu_torch.ops.upconv_plan.upconv_plan`.
 
 * :func:`upconv2x` launches the kernel for CUDA tensors and calls the plain
   version for CPU tensors.  There is no fallback on the card: a CUDA tensor
@@ -21,11 +22,13 @@ kernel writes the shuffle from its epilogue.  The CUDA source is
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Tuple
 
 import torch
 
 from . import _build
+from .upconv_plan import upconv_plan
 
 __all__ = ["upconv2x", "upconv2x_ref", "upconv_supported"]
 
@@ -67,21 +70,23 @@ def upconv2x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return upconv2x_ref(x, w, torch.bfloat16)
     if x.device.type != "cuda":
         raise ValueError(f"upconv2x runs on cuda or cpu tensors, not {x.device}")
-    N, D, H, W, ci = (int(s) for s in x.shape)
-    co = int(w.shape[4])
-    if not upconv_supported(tuple(x.shape), co):
-        raise ValueError(f"upconv2x does not take x {tuple(x.shape)} -> co={co}")
+    N, D, H, W, ci = x.shape
+    co = w.shape[4]
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("upconv2x needs contiguous x and w")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("upconv2x needs 16-byte aligned x and w")
-    y = torch.empty((N, 2 * D, 2 * H, 2 * W, co), dtype=torch.bfloat16, device=x.device)
+    y = x.new_empty((N, 2 * D, 2 * H, 2 * W, co))
     if y.numel() == 0:
         return y
-    rc = _lib().upconv2x_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, D, H, W, ci, co,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+    # no plan: a shape upconv_supported refuses, or N*2D past a TMA coordinate
+    plan, args = _plan_args(N, D, H, W, ci, co)
+    if plan is None:
+        raise ValueError(f"upconv2x does not take x {tuple(x.shape)} -> co={co}")
+    launch, stream = _launcher or _bind()
+    rc = launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), args, stream(x.device.index))
     if rc != 0:
-        raise RuntimeError(f"upconv2x launch failed: cudaError {rc}")
+        raise RuntimeError(f"upconv2x launch failed: cudaError {rc} ({plan.describe()})")
     upconv2x.launches += 1
     return y
 
@@ -89,10 +94,26 @@ def upconv2x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 upconv2x.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("upconv2x")
-    fn = lib.upconv2x_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    return lib
+@lru_cache(maxsize=None)
+def _plan_args(N: int, D: int, H: int, W: int, ci: int, co: int):
+    """The plan of a shape and the launcher's argument block: the shape, then
+    ``UpconvPlan.launch_args()``, as one int64 array (one ctypes argument
+    instead of seventeen: host time per call)."""
+    plan = upconv_plan(N, D, H, W, ci, co)
+    if plan is None:
+        return None, None
+    return plan, (ctypes.c_longlong * 14)(N, D, H, W, ci, co, *plan.launch_args())
+
+
+_launcher = None
+
+
+def _bind():
+    """Bind the C launcher once (building the library on first use), with
+    the raw handle of the device's current stream."""
+    global _launcher
+    fn = _build.load_library("upconv2x").upconv2x_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    _launcher = fn, torch._C._cuda_getCurrentRawStream
+    return _launcher

@@ -18,10 +18,13 @@ kernel's own inputs; ``library_colmajor_ms`` on a column-major copy of ``y``
 (the layout cuBLASLt's int8 path favours, made once outside the timing).
 ``library_ms`` and ``library_tops`` are the faster of the two, the library's
 best, and ``library`` names its layout.  Times are CUDA-event means over
-back-to-back launches after a warm-up.  ``bound_ms`` is the least time the
-card could take: the larger
-of the bytes (operands read once, result written once) at 3.35 TB/s and the
-operations at 1,979 TOP/s dense int8 (H100 SXM data sheet).
+back-to-back launches after a warm-up; ``kernel_ms`` times the wrapper
+call (host work included), ``device_ms`` the kernels alone (their summed
+durations in a torch.profiler trace of the same calls, transpose
+included), and ``route`` names the wrapper's route.  ``bound_ms`` is the
+least time the card could take: the larger of the bytes (operands read
+once, result written once) at 3.35 TB/s and the operations at 1,979 TOP/s
+dense int8 (H100 SXM data sheet).
 
 It writes nothing unless ``--log PATH`` is given, which appends the lines to
 PATH.  It needs a CUDA card and exits non-zero without one.
@@ -37,10 +40,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.int8_probe import int8_matmul, int8_matmul_ref
+from ..ops.int8_probe import int8_matmul, int8_matmul_ref, int8_route
 
-__all__ = ["INT8_SHAPES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "cuda_ms", "int8_bound_ms",
-           "measure_int8", "run_int8", "main"]
+__all__ = ["INT8_SHAPES", "RAGGED_SHAPES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "cuda_ms",
+           "device_ms", "int8_bound_ms", "measure_int8", "run_int8", "main"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM
@@ -51,6 +54,16 @@ INT8_SHAPES: Tuple[Tuple[str, int, int, int, int, int, int], ...] = (
     ("stage-l0-bn", 3072, 384, 128, 128, 128, 128),
     ("stage-l0-gn-concat", 3072, 1152, 256, 128, 256, 384),
     ("stage-l1", 1536, 1152, 384, 128, 384, 384),
+)
+
+#: three more shapes the card kernel is held to (not the reference probe's):
+#: a ragged-valid case, one ragged against the fast route's 128 x 256 x 128
+#: tile, and one with K and N off 16 (the byte route); cuBLASLt refuses
+#: K = 80 and K = 84, so those two have no library time
+RAGGED_SHAPES: Tuple[Tuple[str, int, int, int, int, int, int], ...] = (
+    ("ragged-valid", 1024, 128, 384, 128, 128, 128),
+    ("ragged-tile", 1000, 80, 48, 8, 16, 16),
+    ("ragged-bytes", 1000, 84, 50, 8, 10, 12),
 )
 
 
@@ -67,6 +80,27 @@ def cuda_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn: Callable[[], object], name: str, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of the kernels whose names contain
+    ``name``, over ``iters`` calls of ``fn`` traced by torch.profiler: the
+    kernels' own time, without the host time between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time of kernels named *{name}*")
+    return us / 1e3 / iters
 
 
 def int8_bound_ms(M: int, K: int, N: int) -> Tuple[float, str]:
@@ -102,6 +136,7 @@ def measure_int8(label: str, M: int, K: int, N: int, bm: int, bn: int, bk: int,
         library_name = "torch._int_mm, y " + (
             "column-major" if library_colmajor_ms <= library_rowmajor_ms else "row-major")
     kernel_ms = cuda_ms(lambda: int8_matmul(x, y, bm=bm, bn=bn, bk=bk))
+    dev_ms = device_ms(lambda: int8_matmul(x, y, bm=bm, bn=bn, bk=bk), "int8_")
     plain_ms = cuda_ms(lambda: int8_matmul_ref(x, y), iters=5, warmup=1)
     bound_ms, bound_by = int8_bound_ms(M, K, N)
     ops = 2 * M * K * N
@@ -109,7 +144,8 @@ def measure_int8(label: str, M: int, K: int, N: int, bm: int, bn: int, bk: int,
         "probe": f"int8:{label}", "ok": ok, "shape": [M, K, N], "blocks": [bm, bn, bk],
         "kernel_tops": ops / kernel_ms / 1e9,
         "library_tops": ops / library_ms / 1e9 if library_ms else None,
-        "bound_ms": bound_ms, "bound_by": bound_by, "kernel_ms": kernel_ms,
+        "route": int8_route(M, N, K, x.data_ptr(), y.data_ptr()),
+        "bound_ms": bound_ms, "bound_by": bound_by, "kernel_ms": kernel_ms, "device_ms": dev_ms,
         "library_ms": library_ms, "library_rowmajor_ms": library_rowmajor_ms,
         "library_colmajor_ms": library_colmajor_ms, "plain_ms": plain_ms,
         "library": library_name,

@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``braintpu_torch/csrc`` (nvcc, seconds,
-all at once) and checks that both 3x3x3 convolution libraries hold Hopper
-wgmma (``HGMMA`` in ``cuobjdump -sass``), holds every kernel against its
+all at once) and checks that every library holds Hopper wgmma in its SASS
+(``HGMMA`` in the two convolutions and ``upconv2x``, ``IGMMA`` in
+``int8_matmul``; ``cuobjdump -sass``), holds every kernel against its
 plain PyTorch version at the shapes the main paths give it (printing each
-convolution's TF/s and launch plan: box, BM, BN, stages), then drives the main paths on synthetic BraTS
+kernel's time, its device time where the wrapper's host work matters, and
+its launch plan), then drives the main paths on synthetic BraTS
 cases: MODEL1_BN (full width, the two trained folds in
 ``results/trained_synth/checkpoints/model1``, fullconv mode, 8-flip mirror
 TTA), checked against the generator's ground truth; one full-width
@@ -36,6 +38,7 @@ import argparse
 import contextlib
 import gzip
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -93,19 +96,31 @@ def bucket_of(case_dir: Path):
     return info.cropped_shape, tuple(max(32, -(-s // 32) * 32) for s in info.cropped_shape)
 
 
+#: the wgmma opcode each library's SASS must hold: HGMMA (bf16) in the three
+#: segmentation kernels, IGMMA (s8) in int8_matmul's fast path
+SASS_WGMMA = {"conv3d_tap_merged": "HGMMA", "conv_stage": "HGMMA", "upconv2x": "HGMMA",
+              "int8_matmul": "IGMMA"}
+
+
 def sass_check(build) -> dict:
-    """Both 3x3x3 convolution libraries must hold Hopper wgmma (HGMMA) in
-    their SASS: a build that quietly kept mma.sync (HMMA) does not pass."""
+    """Every library must hold Hopper wgmma of its type in its SASS
+    (:data:`SASS_WGMMA`): a build that quietly kept mma.sync (HMMA, IMMA)
+    on a fast path does not pass.  Returns the count of each library's
+    warpgroup-MMA opcodes by name."""
     home = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc").resolve().parent
     cuobjdump = shutil.which("cuobjdump") or str(home / "cuobjdump")
     found = {}
-    for name in ("conv3d_tap_merged", "conv_stage"):
+    for name, want in SASS_WGMMA.items():
         lib = build._lib_path(name)
         sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
-        found[name] = sass.count("HGMMA")
-        if not found[name]:
-            raise AssertionError(f"no HGMMA in the SASS of {lib.name}: not the wgmma main loop")
+        ops = {}
+        for op in re.findall(r"\b([A-Z]+GMMA)\b", sass):
+            ops[op] = ops.get(op, 0) + 1
+        found[name] = ops
+        if not ops.get(want):
+            raise AssertionError(f"no {want} in the SASS of {lib.name} (warpgroup MMA opcodes: "
+                                 f"{ops}): not the wgmma kernel")
     return found
 
 
@@ -235,10 +250,14 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
 
 def check_upconv(torch, shape, co, seed: int) -> dict:
     """upconv2x against its plain version at one main-path shape, and its
-    times beside cuDNN's bf16 ``conv_transpose3d`` (which the port never calls)."""
+    times (event time of the wrapper call, device time of the kernel)
+    beside cuDNN's bf16 ``conv_transpose3d`` (which the port never calls) and
+    ``fill_`` of the output tensor (the card writing the same bytes alone)."""
     import torch.nn.functional as F
 
     from braintpu_torch.ops.upconv import upconv2x, upconv2x_ref
+    from braintpu_torch.ops.upconv_plan import upconv_plan
+    from braintpu_torch.tools.probe import device_ms
 
     N, D, H, W, ci = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -252,6 +271,8 @@ def check_upconv(torch, shape, co, seed: int) -> dict:
     if not err <= tol:
         raise AssertionError(f"upconv2x disagrees at {shape}->{co}: {err} > {tol}")
     kernel_ms = cuda_ms(torch, lambda: upconv2x(x, w))
+    dev_ms = device_ms(lambda: upconv2x(x, w), "upconv2x_kernel")
+    fill_ms = cuda_ms(torch, lambda: y.fill_(1.0))  # the same output bytes, written alone
     plain_ms = cuda_ms(torch, lambda: upconv2x_ref(x, w))
     xc = x.permute(0, 4, 1, 2, 3)
     wt = w.permute(0, 4, 1, 2, 3).contiguous(memory_format=torch.channels_last_3d)
@@ -261,9 +282,11 @@ def check_upconv(torch, shape, co, seed: int) -> dict:
     nbytes = 2 * (vox * ci + w.numel() + 8 * vox * co)
     bound_ms, bound_by = _bound(nbytes, flops)
     return {"shape": [N, D, H, W, ci, co], "max_abs_err": err, "tol": tol,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "F.conv_transpose3d bf16", "bound_ms": bound_ms, "bound_by": bound_by,
-            "gbps": nbytes / kernel_ms / 1e6}
+            "kernel_ms": kernel_ms, "device_ms": dev_ms, "fill_ms": fill_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library": "F.conv_transpose3d bf16",
+            "bound_ms": bound_ms, "bound_by": bound_by, "gbps": nbytes / kernel_ms / 1e6,
+            "device_gbps": nbytes / dev_ms / 1e6,
+            "plan": upconv_plan(N, D, H, W, ci, co).describe()}
 
 
 #: device-time categories of the profile, by kernel-name fragment (first match)
@@ -384,7 +407,7 @@ def main() -> int:
 
     with phase("2 build"):
         print(f"sources: {_build.build_all()} -> {_build.BUILD_DIR.relative_to(ROOT)}")
-        print(f"HGMMA instructions in the SASS: {sass_check(_build)}")
+        print(f"wgmma instructions in the SASS: {sass_check(_build)}")
 
     with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
         tmp = Path(tmp)
@@ -451,13 +474,10 @@ def main() -> int:
                   f"segmentation kernels {counts()}")
             if rc != 0 or int8_launches == 0 or any(counts().values()):
                 raise AssertionError("the probe entry point did not run through int8_matmul alone")
-            # three more shapes: the ragged-valid case, one ragged against
-            # the kernel's own 128 x 128 x 64 tile, and one with K and N off
-            # its 16-byte chunks (the byte-load path); cuBLASLt refuses
-            # K = 80 and K = 84: no library time there
-            for label, M, K, N, bm, bn, bk in (("ragged-valid", 1024, 128, 384, 128, 128, 128),
-                                               ("ragged-tile", 1000, 80, 48, 8, 16, 16),
-                                               ("ragged-bytes", 1000, 84, 50, 8, 10, 12)):
+            # three more shapes (probe.RAGGED_SHAPES): ragged against the
+            # fast route's tile, and the byte route; cuBLASLt refuses K = 80
+            # and K = 84: no library time there
+            for label, M, K, N, bm, bn, bk in probe.RAGGED_SHAPES:
                 r = probe.measure_int8(label, M, K, N, bm, bn, bk, seed=50 + M + K,
                                        library=label == "ragged-valid")
                 print(json.dumps(r), flush=True)
@@ -704,8 +724,9 @@ def main() -> int:
             "checked": True, "launches": main_launches[name],
             "launches_on_main_path": main_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name]),
-            "shape": h["shape"], "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
-            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "shape": h["shape"], "ms": h["kernel_ms"], "device_ms": h.get("device_ms"),
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+            "library_ms": h["library_ms"],
         })
     cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
     line.append({
@@ -715,7 +736,8 @@ def main() -> int:
         "launches": int8_launches, "launches_on_main_path": 0,
         "launches_path": "python -m braintpu_torch.tools.probe int8",
         "max_abs_err": max(r["max_abs_err"] for r in int8_records),
-        "shape": cube["shape"], "ms": cube["kernel_ms"], "plain_ms": cube["plain_ms"],
+        "shape": cube["shape"], "ms": cube["kernel_ms"], "device_ms": cube["device_ms"],
+        "int8_route": cube["route"], "plain_ms": cube["plain_ms"],
         "bound_ms": cube["bound_ms"], "bound_by": cube["bound_by"],
         "library_ms": cube["library_ms"], "library": cube["library"],
         "library_rowmajor_ms": cube["library_rowmajor_ms"],

@@ -2,9 +2,11 @@
 point, held against the JAX package's Pallas kernel.
 
 The Pallas kernel runs in interpret mode, as the JAX package's own test runs
-it; the port's CPU path is its plain version.  The card-only checks of the
-kernel are in ``test_torch_port.py``, which imports no JAX (the machine with
-the card has none).
+it; the port's CPU path is its plain version.  A plain emulation of the card
+kernel's fast route (the transpose, then the persistent wgmma GEMM's tiles)
+is held bit-equal to both.  The card-only checks of the kernel are in
+``test_torch_port.py``, which imports no JAX (the machine with the card has
+none).
 """
 
 import re
@@ -20,7 +22,7 @@ import torch
 from braintpu.ops.int8_probe import int8_matmul as jax_int8_matmul
 from braintpu.ops.int8_probe import xla_int8_matmul
 
-from braintpu_torch.ops.int8_probe import int8_matmul, int8_matmul_ref
+from braintpu_torch.ops.int8_probe import G_BM, G_BN, SMS, int8_matmul, int8_matmul_ref, int8_route
 from braintpu_torch.tools import probe
 
 REPO = Path(__file__).resolve().parent.parent
@@ -116,3 +118,75 @@ def test_probe_and_pipeline_import_without_a_card():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+# ---------------------------------------------------------------------------
+# The card kernel's routes, and a plain emulation of the fast route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,N,K,x_off,y_off,route", [
+    (4096, 4096, 4096, 0, 0, "wgmma"),
+    (1000, 48, 80, 0, 0, "wgmma"),     # M is free; K and N multiples of 16
+    (1000, 50, 84, 0, 0, "bytes"),     # K and N off 16
+    (64, 32, 24, 0, 0, "bytes"),       # K off 16
+    (64, 40, 32, 0, 0, "bytes"),       # N off 16
+    (64, 32, 48, 1, 0, "bytes"),       # x one byte past a 16-byte boundary
+    (64, 32, 48, 0, 8, "bytes"),       # y 8 bytes past one
+])
+def test_route_follows_shapes_and_alignment(M, N, K, x_off, y_off, route):
+    assert int8_route(M, N, K, 1024 + x_off, 4096 + y_off) == route
+
+
+def test_route_constants_are_the_kernel_s():
+    src = (REPO / "braintpu_torch" / "csrc" / "int8_matmul.cu").read_text()
+    assert re.search(rf"constexpr int G_BM = {G_BM};", src)
+    assert re.search(rf"constexpr int G_BN = {G_BN};", src)
+    assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in src
+
+
+def emulate_fast_route(x: np.ndarray, y: np.ndarray, grid: int = SMS) -> np.ndarray:
+    """The fast route's arithmetic as the kernels do it: y transposed into
+    (N, K) scratch, then the persistent GEMM's schedule -- block b takes
+    output tiles b, b + grid, ...; tile t is rows (t % tiles_m) * 128 and
+    columns (t // tiles_m) * 256 -- each tile summed over K steps of 128
+    bytes of both K-major operands (zeros past the edges) in int32, and
+    stored masked at the ragged M and N edges."""
+    M, K = x.shape
+    N = y.shape[1]
+    yt = np.ascontiguousarray(y.T)  # the transpose kernel
+    tiles_m, tiles_n = -(-M // G_BM), -(-N // G_BN)
+    kp = -(-K // 128) * 128
+    xp = np.zeros((tiles_m * G_BM, kp), np.int32)
+    xp[:M, :K] = x
+    yp = np.zeros((tiles_n * G_BN, kp), np.int32)
+    yp[:N, :K] = yt
+    out = np.full((M, N), -1, np.int64)
+    writes = np.zeros((M, N), np.int32)
+    for b in range(min(grid, tiles_m * tiles_n)):
+        for t in range(b, tiles_m * tiles_n, grid):
+            m0, n0 = t % tiles_m * G_BM, t // tiles_m * G_BN
+            acc = np.zeros((G_BM, G_BN), np.int32)
+            for k0 in range(0, kp, 128):
+                acc += xp[m0:m0 + G_BM, k0:k0 + 128] @ yp[n0:n0 + G_BN, k0:k0 + 128].T
+            rows, cols = min(G_BM, M - m0), min(G_BN, N - n0)
+            out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+            writes[m0:m0 + rows, n0:n0 + cols] += 1
+    assert (writes == 1).all()
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (384, 256, 512, 128, 128, 128),   # whole tiles
+    (200, 144, 272, 8, 16, 16),       # ragged M, N, K against the 128 x 256 x 128 tiles
+    (1000, 80, 48, 8, 16, 16),        # the smoke's ragged-tile probe shape
+])
+def test_emulated_fast_route_is_bit_equal_to_plain_and_pallas(M, K, N, bm, bn, bk):
+    x, y = _operands(M * 7 + K, M, K, N)
+    assert int8_route(M, N, K) == "wgmma"
+    got = emulate_fast_route(x, y, grid=5)
+    ref = int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    pallas = np.asarray(jax_int8_matmul(jnp.asarray(x), jnp.asarray(y), bm=bm, bn=bn, bk=bk,
+                                        interpret=True))
+    np.testing.assert_array_equal(got, pallas)

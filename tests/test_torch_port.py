@@ -5,6 +5,7 @@ Whether a card is present is decided inside fixtures and tests, never at
 import or collection time.
 """
 
+import ctypes
 import json
 import pkgutil
 import re
@@ -22,9 +23,11 @@ from braintpu_torch.io import nifti
 from braintpu_torch.models import unet3d
 from braintpu_torch.ops import _build
 from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
-from braintpu_torch.ops.int8_probe import int8_matmul, int8_matmul_ref
+from braintpu_torch.ops import upconv as upconv_mod
+from braintpu_torch.ops.int8_probe import int8_matmul, int8_matmul_ref, int8_route
 from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
 from braintpu_torch.ops.upconv import upconv2x, upconv2x_ref
+from braintpu_torch.ops.upconv_plan import UpconvPlan, upconv_plan
 from braintpu_torch.tools import probe
 from braintpu_torch.train.synthetic import write_synth_case
 
@@ -542,7 +545,7 @@ def _int8_operands(seed, M, K, N):
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N,bm,bn,bk", [
     (256, 512, 384, 128, 128, 128),
-    (200, 80, 48, 8, 16, 16),  # ragged against the kernel's 128 x 128 x 64 tile
+    (200, 80, 48, 8, 16, 16),  # ragged against the fast route's 128 x 256 x 128 tile
     (3072, 384, 128, 128, 128, 128),
     (1, 16, 16, 1, 16, 16),
     (32, 24, 32, 8, 8, 8),  # K and N off 16: the byte-load path
@@ -595,3 +598,46 @@ def test_gpu_probe_entry_point_launches_the_kernel(cuda, tmp_path, capsys):
     lines = [json.loads(ln) for ln in log.read_text().splitlines()]
     assert [r["probe"] for r in lines] == [f"int8:{s[0]}" for s in probe.INT8_SHAPES]
     assert all(r["ok"] for r in lines)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", probe.INT8_SHAPES + probe.RAGGED_SHAPES, ids=lambda s: s[0])
+def test_gpu_int8_kernel_at_the_seven_probe_shapes(cuda, shape):
+    label, M, K, N, bm, bn, bk = shape
+    x, y = _int8_operands(M + K + N, M, K, N)
+    tx, ty = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    assert int8_route(M, N, K, tx.data_ptr(), ty.data_ptr()) == (
+        "bytes" if label == "ragged-bytes" else "wgmma")
+    before = int8_matmul.launches
+    got = int8_matmul(tx, ty, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1  # one call, whichever route
+    assert torch.equal(got, int8_matmul_ref(tx, ty))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_fast_route_takes_a_strided_operand(cuda):
+    x, y = _int8_operands(11, 256, 128, 512)
+    tx = torch.from_numpy(x).to(cuda)
+    ty = torch.from_numpy(np.ascontiguousarray(y.T)).to(cuda).t()  # made contiguous, aligned
+    assert not ty.is_contiguous()
+    got = int8_matmul(tx, ty, bm=128, bn=128, bk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(y)))
+
+
+@pytest.mark.gpu
+def test_gpu_upconv_raises_on_a_plan_the_launcher_refuses(cuda, monkeypatch):
+    def bad_plan(*shape):
+        p = upconv_plan(*shape)
+        bad = UpconvPlan(p.bh, p.bw, p.nb, p.sp, p.sg, p.splits, 3, p.stream, p.smem_bytes,
+                         p.tiles, p.grid)  # 3 stages: not a multiple of the consumers
+        return bad, (ctypes.c_longlong * 14)(*shape, *bad.launch_args())
+
+    monkeypatch.setattr(upconv_mod, "_plan_args", bad_plan)
+    x = torch.zeros(1, 4, 8, 8, 16, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(16, 2, 2, 2, 8, dtype=torch.bfloat16, device=cuda)
+    before = upconv2x.launches
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        upconv2x(x, w)
+    assert upconv2x.launches == before
