@@ -13,9 +13,11 @@
     python -m braintpu_torch.cli rename CASE_DIR [--dry-run]
 
 The subcommands and flags follow ``braintpu/cli.py`` for what the port has
-(fullconv mode with the softmax-level ensemble of model1 and model2, npz
-checkpoints, ``--random-weights``), plus ``--device`` on the commands that
-build an engine: the card by default, ``cpu`` only when asked for.
+(model1 and model2, npz checkpoints, ``--random-weights``, ``--mode
+{sliding,fullconv}`` with fullconv as the default for these models, as the
+reference's ``load_engine`` chooses, ``--ensemble {softmax,label}``), plus
+``--device`` on the commands that build an engine: the card by default,
+``cpu`` only when asked for.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ def load_engine(args):
     selected.index(name) * 1000 + f)``, as in the reference (a name listed
     twice draws the same folds twice).  The label convention is
     ``--convention`` where the subcommand has it, else internal labels (the
-    pipeline converts in its own stage).
+    pipeline converts in its own stage).  Without ``--mode`` the engine runs
+    fullconv: the reference's default for non-axial models (the port has no
+    axial model), while ``InferenceEngine`` itself defaults to sliding.
     Prints, per model, which folds were loaded and which were drawn.
     """
     from .ckpt.npz import load_pytree_npz, params_from_jax
@@ -71,6 +75,8 @@ def load_engine(args):
     return InferenceEngine(
         models=bundles,
         tta=not args.no_tta,
+        ensemble=args.ensemble,
+        mode=args.mode or "fullconv",
         et_min_voxels=0 if args.no_et_postprocess else 200,
         output_convention=getattr(args, "convention", None) or "internal",
         device=args.device,
@@ -78,7 +84,7 @@ def load_engine(args):
 
 
 def cmd_segment(args) -> int:
-    from .io.brats import find_cases
+    from .io.brats import CasePrefetcher, find_cases
 
     cases = find_cases(args.input)
     if not cases:
@@ -88,8 +94,9 @@ def cmd_segment(args) -> int:
     out.mkdir(parents=True, exist_ok=True)
     if args.warmup:
         print(f"# warmup: {engine.warmup():.1f}s")
-    for case in cases:
-        seg, info = engine.predict_case(case, out / f"{case.case_id}.nii.gz")
+    # the next case decodes on a host thread while the device segments this one
+    for case, loaded in CasePrefetcher(cases):
+        seg, info = engine.predict_case(case, out / f"{case.case_id}.nii.gz", loaded=loaded)
         print(f"{case.case_id}: {info['total_s']:.1f}s  volumes={info['volumes_cm3']}")
     return 0
 
@@ -223,6 +230,12 @@ def _add_engine_args(p, convention_default=None) -> None:
         p.add_argument("--convention", choices=["internal", "brats2025", "brats2021"],
                        default=convention_default, help="label convention of saved segmentations")
     p.add_argument("--no-tta", action="store_true")
+    p.add_argument("--ensemble", choices=["softmax", "label"], default="softmax",
+                   help="softmax: mean of the models' region probabilities, then the ET rule; "
+                        "label: round(mean of the models' label maps), no ET rule")
+    p.add_argument("--mode", choices=["sliding", "fullconv"], default=None,
+                   help="fullconv (default for these models): one whole-volume forward per fold "
+                        "and mirror; sliding: 128^3 patches at 50%% overlap, Gaussian-blended")
     p.add_argument("--no-et-postprocess", action="store_true")
     p.add_argument("--random-weights", action="store_true",
                    help="random init for folds without a checkpoint (demo/bench)")

@@ -1,15 +1,27 @@
-"""Case-level inference: preprocess -> fullconv ensemble -> labels -> export.
+"""Case-level inference: preprocess -> model ensemble -> labels -> export.
 
-Counterpart of ``braintpu/infer/engine.py`` in fullconv mode: a
-:class:`ModelBundle` per architecture (its folds; BatchNorm folded,
-GroupNorm / InstanceNorm kept as loaded), the softmax-level ensemble (mean of the models' sigmoid region maps, then the
-KAIST 200-voxel ET rule), uncrop, the output label convention and
-per-region volumes.
+Counterpart of ``braintpu/infer/engine.py``: a :class:`ModelBundle` per
+architecture (its folds; BatchNorm folded, GroupNorm / InstanceNorm kept as
+loaded) run in one of two modes,
+
+* ``"sliding"`` (the default, as in the reference): nnU-Net's 128^3 /
+  50 %-overlap Gaussian-blended sliding window (:mod:`.sliding_window`), the
+  volume padded to the largest patch of the ensemble;
+* ``"fullconv"``: one whole-volume forward per fold and mirror
+  (:mod:`.fullconv`), the volume padded to a multiple of ``2**num_pool``;
+
+and one of two ensembles,
+
+* ``"softmax"`` (canonical): the mean of the models' sigmoid region maps,
+  then the KAIST 200-voxel ET rule;
+* ``"label"`` (repo parity): ``round(mean of the models' label maps)`` with
+  numpy's round-half-to-even, never followed by the ET rule;
+
+then uncrop, the output label convention and per-region volumes.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no card and no CPU request it raises.  Sliding-window mode, multi-case
-batching, meshes, spatial sharding and the label-level ensemble are not
-ported yet.
+no card and no CPU request it raises.  Multi-case batching, meshes and
+spatial sharding are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +40,8 @@ from ..labels.convert import internal_to_brats2021, internal_to_brats2025
 from ..labels.postprocess import et_min_size_postprocess
 from ..models.unet3d import UNetConfig, fold_batchnorm
 from ..pre.preprocess import preprocess_case
-from .fullconv import predict_probs_fullconv, region_probs_to_labels
+from .fullconv import predict_probs_fullconv
+from .sliding_window import predict_probs, region_probs_to_labels
 
 __all__ = ["ModelBundle", "InferenceEngine", "calculate_volumes", "uncrop_labels", "resolve_device"]
 
@@ -122,27 +135,35 @@ def calculate_volumes(
 
 @dataclass
 class InferenceEngine:
-    """Multi-model, multi-fold BraTS segmentation engine (fullconv mode)."""
+    """Multi-model, multi-fold BraTS segmentation engine."""
 
     models: List[ModelBundle]
+    step_size: float = 0.5  # sliding-window overlap step, in patches
     tta: bool = True
-    et_min_voxels: int = 200  # 0 disables
+    ensemble: str = "softmax"  # "softmax" (canonical) | "label" (repo parity)
+    et_min_voxels: int = 200  # 0 disables; applied only in softmax mode
     output_convention: str = "brats2025"  # "brats2025" | "brats2021" | "internal"
-    mode: str = "fullconv"
+    #: "sliding": the 128^3 / 50 %-overlap Gaussian-blended recipe;
+    #: "fullconv": the whole-volume forward (about 3x fewer FLOPs on a
+    #: BraTS-size case; GroupNorm statistics over the whole volume).
+    mode: str = "sliding"
     #: None = the card; "cpu" only when asked for.
     device: Union[None, str, torch.device] = None
 
     def __post_init__(self) -> None:
-        if self.mode != "fullconv":
-            raise NotImplementedError(f"mode={self.mode!r} is not ported yet (fullconv only)")
+        if self.mode not in ("sliding", "fullconv"):
+            raise ValueError(f"mode={self.mode!r}: choose 'sliding' or 'fullconv'")
+        if self.ensemble not in ("softmax", "label"):
+            raise ValueError(f"ensemble={self.ensemble!r}: choose 'softmax' or 'label'")
         if len({m.cfg.num_classes for m in self.models}) != 1:
             raise ValueError("ensemble models must share num_classes")
         self.device = resolve_device(self.device)
         self.models = [m.to(self.device) for m in self.models]
 
     def warmup(self, bucket_shape: Tuple[int, int, int] = (192, 192, 160)) -> float:
-        """Run one dummy case of ``bucket_shape`` (first-use costs: kernel
-        build, cuDNN plans, allocator growth).  Returns seconds spent."""
+        """Run one dummy case of ``bucket_shape`` in the engine's mode
+        (first-use costs: kernel build, cuDNN plans, allocator growth).
+        Returns seconds spent."""
         t0 = time.perf_counter()
         self.predict_case_array(np.ones((4,) + tuple(bucket_shape), np.float32))
         return time.perf_counter() - t0
@@ -150,29 +171,46 @@ class InferenceEngine:
     def predict_case_array(self, data_cxyz: np.ndarray) -> Tuple[np.ndarray, Dict[str, Any]]:
         """(C, X, Y, Z) float stack -> (labels in output convention, info)."""
         t0 = time.perf_counter()
-        div = max(2**m.cfg.num_pool for m in self.models)
-        pre = preprocess_case(data_cxyz, patch_size=(div,) * 3, pad_multiple=div,
-                              device=self.device)
+        if self.mode == "fullconv":
+            # every axis must divide through all pool stages of every model
+            div = max(2**m.cfg.num_pool for m in self.models)
+            pre = preprocess_case(data_cxyz, patch_size=(div,) * 3, pad_multiple=div,
+                                  device=self.device)
+        else:
+            # pad to the largest patch across models so every model can tile it
+            patch = tuple(max(m.cfg.patch_size[i] for m in self.models) for i in range(3))
+            pre = preprocess_case(data_cxyz, patch_size=patch, device=self.device)
         info: Dict[str, Any] = {"preprocess_s": time.perf_counter() - t0}
         info["bucket_shape"] = tuple(int(s) for s in pre.data.shape[1:])
         t1 = time.perf_counter()
-        per_model_probs = [
-            predict_probs_fullconv(m.fold_params, pre.data, m.cfg, tta=self.tta,
-                                   folded=m.folded)
-            for m in self.models
-        ]
+        per_model_probs = []
+        for m in self.models:
+            if self.mode == "fullconv":
+                probs = predict_probs_fullconv(m.fold_params, pre.data, m.cfg, tta=self.tta,
+                                               folded=m.folded)
+            else:
+                probs = predict_probs(m.fold_params, pre.data, m.cfg, step_size=self.step_size,
+                                      tta=self.tta, folded=m.folded)
+            per_model_probs.append(probs)
         seg_internal = self._ensemble_labels(per_model_probs, pre)  # syncs: labels to host
         info["predict_s"] = time.perf_counter() - t1
         out = self._to_output_convention(seg_internal, pre)
         info["total_s"] = time.perf_counter() - t0
         info["num_models"] = len(self.models)
+        info["ensemble"] = self.ensemble
+        info["mode"] = self.mode
         return out, info
 
     def _ensemble_labels(self, per_model_probs, pre) -> np.ndarray:
-        """Mean of the models' probability maps -> internal-label segmentation
-        (the softmax-level ensemble), then the ET rule."""
+        """Model-ensemble probability maps -> internal-label segmentation."""
+        undo = pre.undo_slices
+        # label mode applies with any model count: the repo-parity recipe
+        # never runs the ET rule, so a single-model label run must not either
+        if self.ensemble == "label":
+            segs = [region_probs_to_labels(p)[undo].cpu().numpy() for p in per_model_probs]
+            return np.round(sum(s.astype(np.float32) for s in segs) / len(segs)).astype(np.uint8)
         mean_probs = sum(per_model_probs) / len(per_model_probs)
-        seg_internal = region_probs_to_labels(mean_probs)[pre.undo_slices].cpu().numpy()
+        seg_internal = region_probs_to_labels(mean_probs)[undo].cpu().numpy()
         if self.et_min_voxels:
             seg_internal = et_min_size_postprocess(
                 seg_internal, et_label=3, replace_with=2, min_voxels=self.et_min_voxels)
@@ -199,9 +237,20 @@ class InferenceEngine:
         output_path: Optional[Path] = None,
         loaded: Optional[Tuple[np.ndarray, np.ndarray, Tuple[float, ...]]] = None,
     ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """Load a case from disk, segment it, optionally save NIfTI + volumes."""
-        data, affine, zooms = loaded if loaded is not None else load_case_volumes(case)
+        """Load a case from disk, segment it, optionally save NIfTI + volumes.
+
+        Pass ``loaded=(data, affine, zooms)`` (e.g. from
+        :class:`braintpu_torch.io.brats.CasePrefetcher`) to overlap the next
+        case's host-side decode with this case's device work.
+        ``info["decode_route"]`` is the decoder that read the case
+        (``"native"`` or ``"python"``; ``"caller"`` for arrays the caller
+        decoded some other way).
+        """
+        if loaded is None:
+            loaded = load_case_volumes(case)
+        data, affine, zooms = loaded
         seg, info = self.predict_case_array(data)
+        info["decode_route"] = getattr(loaded, "route", "caller")
         info["volumes_cm3"] = self._case_volumes(seg, zooms)
         info["case_id"] = case.case_id
         if output_path is not None:

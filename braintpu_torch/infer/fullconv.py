@@ -1,9 +1,9 @@
 """Whole-volume fully-convolutional inference (fullconv mode).
 
 Counterpart of ``braintpu/infer/fullconv.py`` (``fullconv_predict``,
-``predict_probs_fullconv``).  It also carries the three helpers the
-reference keeps in ``braintpu/infer/sliding_window.py``: ``MIRROR_COMBOS``,
-the mirror flips (``_apply_flips``) and ``region_probs_to_labels``.
+``predict_probs_fullconv``).  ``MIRROR_COMBOS`` and
+``region_probs_to_labels`` live in :mod:`.sliding_window`, as in the
+reference, and are re-exported here.
 
 The cropped volume is padded to a multiple of ``2**num_pool`` per axis, and
 every fold runs one forward per mirror flip over the whole volume.  The
@@ -19,6 +19,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from ..models.unet3d import UNetConfig, apply_unet
+from .sliding_window import MIRROR_COMBOS, region_probs_to_labels
 
 __all__ = [
     "MIRROR_COMBOS",
@@ -26,18 +27,6 @@ __all__ = [
     "predict_probs_fullconv",
     "region_probs_to_labels",
 ]
-
-#: All 2^3 mirror combinations over the spatial axes (nnU-Net mirror_axes=(0,1,2)).
-MIRROR_COMBOS: Tuple[Tuple[int, ...], ...] = (
-    (),
-    (0,),
-    (1,),
-    (2,),
-    (0, 1),
-    (0, 2),
-    (1, 2),
-    (0, 1, 2),
-)
 
 
 def _apply_flips(x: torch.Tensor, axes: Tuple[int, ...]) -> torch.Tensor:
@@ -98,19 +87,3 @@ def predict_probs_fullconv(
     """(C, X, Y, Z) volume (already multiple-of-2^pool) -> (X, Y, Z, K) probs."""
     vol = volume_cxyz.movedim(0, -1).contiguous()
     return fullconv_predict(fold_params, vol, cfg, num_mirror=8 if tta else 1, folded=folded)
-
-
-def region_probs_to_labels(
-    probs: torch.Tensor,
-    region_class_order: Tuple[int, ...] = (1, 2, 3),
-    threshold: float = 0.5,
-) -> torch.Tensor:
-    """Region probabilities -> uint8 label map, later regions overwriting earlier.
-
-    Channel k is painted with label ``region_class_order[k]`` wherever
-    ``probs[..., k] > threshold`` (nnU-Net ``regions_class_order=(1,2,3)``).
-    """
-    seg = torch.zeros(probs.shape[:-1], dtype=torch.uint8, device=probs.device)
-    for k, label in enumerate(region_class_order):
-        seg.masked_fill_(probs[..., k] > threshold, label)
-    return seg

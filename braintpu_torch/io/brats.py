@@ -1,24 +1,29 @@
 """BraTS case discovery, modality order and case loading.
 
-Copy of ``braintpu/io/brats.py`` restricted to what the segment and
-pipeline paths use: case discovery across the BraTS-2021 and BraTS-2025
-naming schemes, the in-place BraTS-2025 -> 2021 rename that the pipeline's
-first stage runs, the canonical modality -> channel order, and
-:func:`load_case_volumes` through the pure-Python NIfTI codec (the port has
-no native decoder yet, so the rename gzips with the standard library).
+Copy of ``braintpu/io/brats.py``: case discovery across the BraTS-2021 and
+BraTS-2025 naming schemes, the in-place BraTS-2025 -> 2021 rename that the
+pipeline's first stage runs (gzip through the native parallel writer, else
+the standard library), the canonical modality -> channel order,
+:func:`load_case_volumes` (the native batch decoder, one zlib thread per
+file, else the pure-Python codec; the result names the route it took) and
+:class:`CasePrefetcher`, which decodes the next case while the device
+segments this one.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
 import gzip
 import os
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from . import nifti
 
 __all__ = [
@@ -30,7 +35,11 @@ __all__ = [
     "rename_brats2025_folder",
     "BratsCase",
     "find_cases",
+    "CaseVolumes",
     "load_case_volumes",
+    "load_case_volumes_native",
+    "load_case_volumes_python",
+    "CasePrefetcher",
 ]
 
 #: Canonical modality order = nnU-Net channel order (T1→0000 … FLAIR→0003).
@@ -89,8 +98,13 @@ def rename_brats2025_folder(folder: os.PathLike, dry_run: bool = False) -> List[
             continue
         dst = folder / new_name
         if needs_gz:
-            with gzip.open(dst, "wb") as f_out:
-                f_out.write(entry.read_bytes())
+            payload = entry.read_bytes()
+            try:
+                # parallel multi-member gzip: ~35 MB per bare .nii volume
+                native.write_gz(dst, payload)
+            except IOError:
+                with gzip.open(dst, "wb") as f_out:
+                    f_out.write(payload)
             entry.unlink()
         else:
             entry.rename(dst)
@@ -162,16 +176,96 @@ def find_cases(root: os.PathLike, recursive: bool = True) -> List[BratsCase]:
     return out
 
 
-def load_case_volumes(case: BratsCase) -> Tuple[np.ndarray, np.ndarray, Tuple[float, ...]]:
+class CaseVolumes(tuple):
+    """``(data, affine, zooms)`` of one case, as :func:`load_case_volumes`
+    returns it (it unpacks as that triple), with ``route``: the decoder that
+    read it, ``"native"`` or ``"python"``."""
+
+    route: str
+
+    def __new__(cls, data: np.ndarray, affine: np.ndarray, zooms: Tuple[float, ...],
+                route: str) -> "CaseVolumes":
+        self = super().__new__(cls, (data, affine, zooms))
+        self.route = route
+        return self
+
+
+def _check_shapes(case: BratsCase, shapes) -> None:
+    if len(set(shapes)) != 1:
+        raise ValueError(f"modality shape mismatch for {case.case_id}: {set(shapes)}")
+
+
+def load_case_volumes_native(case: BratsCase) -> CaseVolumes:
+    """:func:`load_case_volumes` through the native batch decoder (one zlib
+    inflate thread per file).  Raises ``IOError`` when the library is
+    unavailable or a file does not decode, ``ValueError`` on a shape
+    mismatch."""
+    paths = case.ordered_paths()
+    vols = native.read_batch_f32(paths)
+    _check_shapes(case, [v.shape for v in vols])
+    _, affine, zooms = nifti.load_header(paths[0])
+    return CaseVolumes(np.stack(vols, axis=0), affine, zooms, "native")
+
+
+def load_case_volumes_python(case: BratsCase) -> CaseVolumes:
+    """:func:`load_case_volumes` through the pure-Python codec."""
+    imgs = [nifti.load(p) for p in case.ordered_paths()]
+    _check_shapes(case, [im.shape for im in imgs])
+    data = np.stack([im.get_fdata(dtype=np.float32) for im in imgs], axis=0)
+    return CaseVolumes(data, imgs[0].affine, imgs[0].get_zooms(), "python")
+
+
+def load_case_volumes(case: BratsCase) -> CaseVolumes:
     """Load the four modalities as a float32 (4, X, Y, Z) stack.
 
-    Returns ``(data, affine, zooms)``.  All modalities must share a shape;
-    the affine/zooms of the first modality are used (BraTS volumes are
-    co-registered on a 1 mm isotropic grid).
+    Returns ``(data, affine, zooms)`` (a :class:`CaseVolumes`, whose
+    ``route`` says which decoder ran).  All modalities must share a shape
+    (else ``ValueError``); the affine and zooms of the first modality are
+    used (BraTS volumes are co-registered on a 1 mm isotropic grid).  The
+    native decoder runs first; any other failure of it (library
+    unavailable, a file it cannot decode, a qform-only header) takes the
+    pure-Python route, which gives the same values bit for bit.
     """
-    imgs = [nifti.load(p) for p in case.ordered_paths()]
-    shapes = {im.shape for im in imgs}
-    if len(shapes) != 1:
-        raise ValueError(f"modality shape mismatch for {case.case_id}: {shapes}")
-    data = np.stack([im.get_fdata(dtype=np.float32) for im in imgs], axis=0)
-    return data, imgs[0].affine, imgs[0].get_zooms()
+    try:
+        return load_case_volumes_native(case)
+    except IOError:
+        return load_case_volumes_python(case)
+
+
+class CasePrefetcher:
+    """Overlap host-side NIfTI decode with device compute.
+
+    Iterates ``(case, loaded)`` where ``loaded`` is
+    :func:`load_case_volumes`'s result: case *k+1*'s decode (up to
+    ``depth`` cases ahead) runs on a background thread while the consumer
+    segments case *k*.  Each iteration has its own thread pool, so the
+    prefetcher can be iterated again and broken out of; a decode error is
+    raised where its case is yielded.
+
+    Usage::
+
+        for case, loaded in CasePrefetcher(cases):
+            seg, info = engine.predict_case(case, loaded=loaded)
+    """
+
+    def __init__(self, cases: Sequence[BratsCase], depth: int = 1):
+        self._cases = list(cases)
+        self._depth = max(1, depth)
+
+    def __iter__(self):
+        pool = cf.ThreadPoolExecutor(max_workers=self._depth)
+        pending = collections.deque()
+        idx = 0
+        try:
+            while idx < len(self._cases) or pending:
+                while idx < len(self._cases) and len(pending) <= self._depth:
+                    case = self._cases[idx]
+                    pending.append((case, pool.submit(load_case_volumes, case)))
+                    idx += 1
+                case, fut = pending.popleft()
+                yield case, fut.result()
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    def __len__(self) -> int:
+        return len(self._cases)

@@ -1,7 +1,9 @@
 """Self-contained NIfTI-1 reader/writer (no nibabel/SimpleITK dependency).
 
-Copy of the pure-Python codec of ``braintpu/io/nifti.py``; the port has no
-native decoder yet, so :func:`load_f32` and :func:`save` use this codec only.
+Copy of ``braintpu/io/nifti.py``: the pure-Python codec, with the port's
+native library (:mod:`braintpu_torch.native`) as the fast path of
+:func:`load_f32` (parallel zlib inflate) and of :func:`save`'s gzip
+(parallel multi-member gzip), each falling back to this codec.
 
 The original pipeline leans on nibabel for every NIfTI touch.  This module
 provides the same capabilities — load voxel data + affine + zooms, save with preserved
@@ -32,7 +34,9 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-__all__ = ["NiftiImage", "load", "load_f32", "save", "NiftiError"]
+from .. import native
+
+__all__ = ["NiftiImage", "load", "load_header", "load_f32", "save", "NiftiError"]
 
 
 class NiftiError(ValueError):
@@ -254,6 +258,20 @@ def load(path: Union[str, os.PathLike]) -> NiftiImage:
     )
 
 
+def load_header(path: Union[str, os.PathLike]) -> Tuple[Tuple[int, ...], np.ndarray, Tuple[float, ...]]:
+    """Read only the 348-byte header -> ``(shape, affine, zooms)``.
+
+    Much cheaper than :func:`load` for gzipped volumes: only the first
+    deflate block is inflated, not the whole file.
+    """
+    with _open_maybe_gzip(path, "rb") as f:
+        hdr = f.read(_HDR_SIZE)
+    h = _parse_header(hdr)
+    ndim = len(h["shape"])
+    zooms = tuple(abs(float(z)) for z in h["pixdim"][1 : 1 + ndim])
+    return h["shape"], _affine_from_header(h), zooms
+
+
 def _build_header(
     data: np.ndarray,
     affine: np.ndarray,
@@ -310,7 +328,12 @@ def _build_header(
 
 
 def load_f32(path) -> Tuple[np.ndarray, np.ndarray, Tuple[float, ...]]:
-    """Load as ``(float32 data, affine, zooms)``."""
+    """Load as ``(float32 data, affine, zooms)`` through the native decoder
+    when it is available, else the pure-Python codec."""
+    try:
+        return native.read_nifti_f32(path)
+    except IOError:
+        pass
     img = load(path)
     return img.get_fdata(dtype=np.float32), img.affine, img.get_zooms()
 
@@ -349,6 +372,12 @@ def save(
     path = os.fspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if path.endswith(".gz"):
+        try:
+            # parallel multi-member gzip, byte-deterministic (fixed 4 MB split)
+            native.write_gz(path, payload, level=4)
+            return
+        except IOError:
+            pass
         # mtime=0 for deterministic bytes
         buf = _io.BytesIO()
         with gzip.GzipFile(fileobj=buf, mode="wb", mtime=0, compresslevel=4) as gz:

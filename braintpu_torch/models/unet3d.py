@@ -76,6 +76,8 @@ class UNetConfig:
     group_norm_groups: int = 8
     norm_eps: float = 1e-5
     negative_slope: float = 0.01
+    #: sliding-window patch (``infer.sliding_window``); fullconv ignores it
+    patch_size: Tuple[int, int, int] = (128, 128, 128)
     pool_kernel: Tuple[int, int, int] = (2, 2, 2)
     conv_kernel: Tuple[int, int, int] = (3, 3, 3)
     compute_dtype: torch.dtype = torch.bfloat16

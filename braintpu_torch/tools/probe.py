@@ -82,25 +82,32 @@ def cuda_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn: Callable[[], object], name: str, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn: Callable[[], object], name: str, iters: int = 20, warmup: int = 3,
+              attempts: int = 3) -> float:
     """Mean device milliseconds per call of the kernels whose names contain
     ``name``, over ``iters`` calls of ``fn`` traced by torch.profiler: the
-    kernels' own time, without the host time between launches."""
+    kernels' own time, without the host time between launches.
+
+    A trace that holds no such kernel is taken again, up to ``attempts``
+    traces: now and then (once in a few hundred back-to-back sessions on an
+    H100) a profiler session comes back without the device's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time of kernels named *{name}*")
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"the profiler saw no device time of kernels named *{name}* "
+                       f"in {attempts} traces")
 
 
 def int8_bound_ms(M: int, K: int, N: int) -> Tuple[float, str]:

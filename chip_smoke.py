@@ -25,8 +25,19 @@ caller of the ``int8_matmul`` kernel), whose every shape is held bit-equal
 to the plain version and to ``torch._int_mm``; and the report half of
 ``cli pipeline`` (``Pipeline.run_case`` with the model-1 engine on the
 seed-200 case at 240x240x155: convert, evaluate, the six feature steps, the
-governed report and the PDF, each output checked).  Every phase prints its
-wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
+governed report and the PDF, each output checked).  The sliding-window
+recipe (``--mode sliding``: 128^3 patches at 50 % overlap, the mirror copies
+batched along N, 8 for model 1 and 4 for model 2) drives the same three
+kernels at their batch shapes: phase 4 holds each against its plain version
+there, phase 6c segments the seed-200 case at 240x240x155 with model 1
+(Dice against the ground truth, launches = patches x 8/N x folds x the
+kernel layers of one forward), phase 8b times the two-model sliding engine
+beside the fullconv one, and phase 8c runs the label ensemble.  The host
+side: phase 2 builds the native host library (``braintpu_torch/native``,
+g++), phase 4c holds its decode bit-equal to the Python decode and times
+both, phase 6d times the feature steps with its EDT and with scipy's, and
+phase 8d runs ``cli segment``'s loop over three cases with and without the
+case prefetcher.  Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
 in the repository; cases and outputs go to a temporary directory.
@@ -124,12 +135,24 @@ def sass_check(build) -> dict:
     return found
 
 
+def toolchain_present() -> bool:
+    """Whether this machine has g++ and zlib's header (what the native host
+    library needs)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return False
+    probe = subprocess.run([gxx, "-x", "c++", "-fsyntax-only", "-"], input="#include <zlib.h>\n",
+                           capture_output=True, text=True, timeout=60)
+    return probe.returncode == 0
+
+
 def check_kernel(torch, shape, co, seed: int) -> dict:
     """The kernel against its plain version at one main-path shape, and its times."""
     import torch.nn.functional as F
 
     from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
     from braintpu_torch.ops.conv_plan import conv_plan
+    from braintpu_torch.tools.probe import device_ms
 
     N, D, H, W, ci = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -147,6 +170,7 @@ def check_kernel(torch, shape, co, seed: int) -> dict:
             raise AssertionError(f"kernel disagrees at {shape}->{co} slope={slope}: {e} > {bound}")
         err, tol = max(err, e), max(tol, bound)
     kernel_ms = cuda_ms(torch, lambda: conv3d_tap_merged(x, w, b, 0.01))
+    dev_ms = device_ms(lambda: conv3d_tap_merged(x, w, b, 0.01), "conv3d_tap_merged_kernel")
     plain_ms = cuda_ms(torch, lambda: conv3d_tap_merged_ref(x, w, b, 0.01))
     xc = x.permute(0, 4, 1, 2, 3)
     wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
@@ -158,8 +182,8 @@ def check_kernel(torch, shape, co, seed: int) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return {
         "shape": [N, D, H, W, ci, co], "max_abs_err": err, "tol": tol, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "tflops": flops / kernel_ms / 1e9, "plan": conv_plan(N, D, H, W, ci, co).describe(),
     }
 
@@ -195,6 +219,7 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
 
     from braintpu_torch.ops.conv_plan import conv_plan
     from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
+    from braintpu_torch.tools.probe import device_ms
 
     N, D, H, W, ci1 = shape
     ci = ci1 + ci2
@@ -221,6 +246,7 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
     del got, ref, yo, ro
 
     kernel_ms = cuda_ms(torch, lambda: conv_stage(x1, w, b, **kw))
+    dev_ms = device_ms(lambda: conv_stage(x1, w, b, **kw), "conv_stage_kernel")
     plain_ms = cuda_ms(torch, lambda: conv_stage_ref(x1, w, b, **kw))
     wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
     bb = b.bfloat16()
@@ -241,7 +267,8 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
     flops = 2 * vox * 27 * ci * co
     nbytes = 2 * (vox * ci + w.numel() + vox * co) + 4 * (co + 2 * N * ci + 2 * N * co)
     bound_ms, bound_by = _bound(nbytes, flops)
-    r.update({"shape": [N, D, H, W, ci1, ci2, co], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    r.update({"shape": [N, D, H, W, ci1, ci2, co], "kernel_ms": kernel_ms, "device_ms": dev_ms,
+              "plain_ms": plain_ms,
               "library_ms": library_ms, "library": "materialize + cat + F.conv3d bf16 + f32 sums",
               "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / kernel_ms / 1e9,
               "plan": conv_plan(N, D, H, W, ci1, co, ci2, stage=True).describe()})
@@ -300,7 +327,7 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_case(torch, run, out_dir: Optional[Path]) -> None:
+def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") -> None:
     """Trace ``run()`` with torch.profiler: device time of the kernels (not
     of the host ops that launch them) by name and by category, the device's
     busy share of the wall time (one stream: the sum of kernel times), and,
@@ -308,15 +335,19 @@ def profile_case(torch, run, out_dir: Optional[Path]) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    for _ in range(2):  # a session now and then comes back without device events
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      reverse=True)
+        if rows:
+            break
     busy_ms = sum(r[0] for r in rows)
     groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
     groups["elementwise and copies"] = 0.0
@@ -325,7 +356,8 @@ def profile_case(torch, run, out_dir: Optional[Path]) -> None:
                     "elementwise and copies")
         groups[name] += ms
     print(json.dumps({"profile": {
-        "wall_s": wall, "device_busy_s": busy_ms / 1e3, "device_idle_share": 1 - busy_ms / 1e3 / wall,
+        "what": what, "wall_s": wall, "device_busy_s": busy_ms / 1e3,
+        "device_idle_share": 1 - busy_ms / 1e3 / wall,
         "device_ms_by_category": groups,
         "top_kernels": [{"ms": ms, "count": n, "name": k[:120]} for ms, n, k in rows[:20]]}}),
         flush=True)
@@ -347,6 +379,7 @@ def main() -> int:
                     help="write the profiled case's Chrome trace to DIR/trace.json.gz")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    import numpy as np
     import torch
 
     with phase("1 device"):
@@ -360,10 +393,16 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         print("tf32 off for cuDNN convolutions and matmuls (f32 plain versions stay f32)")
 
+    from braintpu_torch import native
     from braintpu_torch.cli import build_parser, load_engine
+    from braintpu_torch.features import run_all_steps
+    from braintpu_torch.infer import engine as engine_mod
     from braintpu_torch.infer.engine import ModelBundle
+    from braintpu_torch.infer.gaussian import patch_grid
+    from braintpu_torch.infer.sliding_window import default_mirror_chunk, region_probs_to_labels
     from braintpu_torch.io import nifti
-    from braintpu_torch.io.brats import find_cases, load_case_volumes
+    from braintpu_torch.io.brats import (CasePrefetcher, find_cases, load_case_volumes,
+                                         load_case_volumes_native, load_case_volumes_python)
     from braintpu_torch.labels.convert import internal_to_brats2025, normalize_to_brats2025
     from braintpu_torch.metrics.segmentation import evaluate_segmentation
     from braintpu_torch.models import unet3d
@@ -393,21 +432,39 @@ def main() -> int:
     def counts():
         return {name: fn.launches for name, fn in kernels.items()}
 
-    def tap_layers(bucket):
-        return [(s, co) for s, st, co in conv_layers(MODEL1_BN, bucket)
+    def tap_layers(bucket, batch=1):
+        return [(s, co) for s, st, co in conv_layers(MODEL1_BN, bucket, batch)
                 if choose_impl(s, (3, 3, 3), st, co, MODEL1_BN.compute_dtype) == "kernel"]
 
-    def stage_layers(bucket):
-        return [(s, co, c2) for s, st, co, c2 in deferred_layers(MODEL2_GN_LARGE, bucket)
+    def stage_layers(bucket, batch=1):
+        return [(s, co, c2) for s, st, co, c2 in deferred_layers(MODEL2_GN_LARGE, bucket, batch)
                 if choose_stage_impl(s, (3, 3, 3), st, co, c2, MODEL2_GN_LARGE.compute_dtype)
                 == "kernel"]
 
-    def up_layers(cfg, bucket):
-        return [(s, co) for s, co in upconv_layers(cfg, bucket) if upconv_supported(s, co)]
+    def up_layers(cfg, bucket, batch=1):
+        return [(s, co) for s, co in upconv_layers(cfg, bucket, batch) if upconv_supported(s, co)]
+
+    # sliding mode: one 128^3 patch per forward, the mirror copies batched
+    # along N (8 for model 1, 4 for model 2)
+    patch = tuple(MODEL1_BN.patch_size)
+    chunk = {MODEL1_BN: default_mirror_chunk(MODEL1_BN),
+             MODEL2_GN_LARGE: default_mirror_chunk(MODEL2_GN_LARGE)}
 
     with phase("2 build"):
         print(f"sources: {_build.build_all()} -> {_build.BUILD_DIR.relative_to(ROOT)}")
         print(f"wgmma instructions in the SASS: {sass_check(_build)}")
+        # the native host library (g++, zlib): it must build, unless the
+        # machine lacks g++ or zlib.h, where the build's message is printed
+        # and the host takes its Python routes
+        t0 = time.perf_counter()
+        if native.native_available():
+            print(f"native host library: {native.library_path().relative_to(ROOT)} "
+                  f"({time.perf_counter() - t0:.2f}s)")
+        else:
+            print(f"native host library did not build:\n{native.build_error()}")
+            if toolchain_present():
+                raise AssertionError("g++ and zlib.h are present, yet the native library "
+                                     "did not build")
 
     with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
         tmp = Path(tmp)
@@ -417,6 +474,8 @@ def main() -> int:
                                           shape=(240, 240, 155))
             flagship = write_synth_case(tmp / "flag", "BraTS-SYN-00200-000", seed=200,
                                         shape=(240, 240, 155))
+            third = write_synth_case(tmp / "third", "BraTS-SYN-00051-000", seed=51,
+                                     shape=(240, 240, 155))  # phase 8d's third case
             buckets = {}
             for name, case in (("anchor", anchor), ("brats_size", brats_size),
                                ("flagship_geometry", flagship)):
@@ -426,41 +485,35 @@ def main() -> int:
 
         results = {name: [] for name in kernels}  # per-shape checks, all buckets
         with phase("4 kernels vs plain"):
-            shapes = []
-            for bucket in buckets.values():
-                for k in tap_layers(bucket):
-                    if k not in shapes:
-                        shapes.append(k)
-            for i, (shape, co) in enumerate(shapes):
-                r = check_kernel(torch, shape, co, seed=i)
-                r["buckets"] = [list(b) for b in buckets.values() if (shape, co) in tap_layers(b)]
-                results["conv3d_tap_merged"].append(r)
-                print(json.dumps({"conv3d_tap_merged": r}), flush=True)
-            shapes = []
-            for bucket in buckets.values():
-                for k in stage_layers(bucket):
-                    if k not in shapes:
-                        shapes.append(k)
-            for i, (shape, co, ci2) in enumerate(shapes):
-                r = check_stage(torch, shape, co, ci2, seed=100 + i)
-                r["buckets"] = [list(b) for b in buckets.values()
-                                if (shape, co, ci2) in stage_layers(b)]
-                results["conv_stage"].append(r)
-                print(json.dumps({"conv_stage": r}), flush=True)
-            shapes = []
-            for bucket in buckets.values():
-                for cfg in (MODEL1_BN, MODEL2_GN_LARGE):
-                    for k in up_layers(cfg, bucket):
+            # every fullconv bucket at N = 1, and the sliding patch at N = 8 / 4
+            fc = [(b, 1) for b in buckets.values()]
+            sources = {
+                "conv3d_tap_merged": [(tap_layers, (b, n)) for b, n in
+                                      fc + [(patch, chunk[MODEL1_BN])]],
+                "conv_stage": [(stage_layers, (b, n)) for b, n in
+                               fc + [(patch, chunk[MODEL2_GN_LARGE])]],
+                "upconv2x": [(lambda b, n, c=c: up_layers(c, b, n), (b, n))
+                             for b, n in fc for c in (MODEL1_BN, MODEL2_GN_LARGE)]
+                            + [(lambda b, n, c=c: up_layers(c, b, n), (patch, chunk[c]))
+                               for c in (MODEL1_BN, MODEL2_GN_LARGE)],
+            }
+            checks = {"conv3d_tap_merged": lambda k, i: check_kernel(torch, *k, seed=i),
+                      "conv_stage": lambda k, i: check_stage(torch, *k, seed=100 + i),
+                      "upconv2x": lambda k, i: check_upconv(torch, *k, seed=200 + i)}
+            for name, src in sources.items():
+                shapes = []
+                for layers, layer_args in src:
+                    for k in layers(*layer_args):
                         if k not in shapes:
                             shapes.append(k)
-            for i, (shape, co) in enumerate(shapes):
-                r = check_upconv(torch, shape, co, seed=200 + i)
-                r["buckets"] = [list(b) for b in buckets.values()
-                                if any((shape, co) in up_layers(c, b)
-                                       for c in (MODEL1_BN, MODEL2_GN_LARGE))]
-                results["upconv2x"].append(r)
-                print(json.dumps({"upconv2x": r}), flush=True)
-            torch.cuda.empty_cache()
+                for i, k in enumerate(shapes):
+                    r = checks[name](k, i)
+                    r["buckets"] = [list(b) for b in sorted({tuple(b) for layers, (b, n) in src
+                                                             if n == 1 and k in layers(b, n)})]
+                    r["sliding"] = k[0][0] > 1  # a mirror chunk of the 128^3 patch
+                    results[name].append(r)
+                    print(json.dumps({name: r}), flush=True)
+                torch.cuda.empty_cache()
 
         with phase("4b int8_matmul vs plain (probe entry point)"):
             # the probe entry point is int8_matmul's only path: driven with
@@ -487,10 +540,36 @@ def main() -> int:
                 raise AssertionError(f"int8_matmul is not bit-equal to its plain version: {bad}")
             torch.cuda.empty_cache()
 
+        with phase("4c decode: native vs Python (seed 50, 240x240x155)"):
+            case50 = find_cases(brats_size)[0]
+            route = load_case_volumes(case50).route
+            dec = {"case": "BraTS-SYN-00050-000 240x240x155, 4 modalities", "route": route}
+            if native.native_available():
+                if route != "native":
+                    raise AssertionError(f"the case loader took the {route} route")
+                nat, py = load_case_volumes_native(case50), load_case_volumes_python(case50)
+                same = (nat[0].dtype == py[0].dtype == np.float32
+                        and np.array_equal(nat[0].view(np.uint32), py[0].view(np.uint32))
+                        and np.array_equal(nat[1], py[1]) and tuple(nat[2]) == tuple(py[2]))
+                if not same:
+                    raise AssertionError("native decode is not bit-equal to the Python decode")
+                secs = {"native": [], "python": []}
+                for which in ("native", "python", "python", "native", "native", "python"):
+                    load = load_case_volumes_native if which == "native" else \
+                        load_case_volumes_python
+                    t0 = time.perf_counter()
+                    load(case50)
+                    secs[which].append(time.perf_counter() - t0)
+                dec.update({"bit_equal": same, "native_s": secs["native"],
+                            "python_s": secs["python"], "native_s_min": min(secs["native"]),
+                            "python_s_min": min(secs["python"])})
+            print(json.dumps({"decode": dec}), flush=True)
+
         # model 1 alone: the first slice's main path, now also through upconv2x
         engine_args = build_parser().parse_args(
             ["segment", "--input", str(anchor), "--output", str(tmp / "out"),
-             "--checkpoints", str(CKPTS), "--models", "model1", "--folds", "2"])
+             "--checkpoints", str(CKPTS), "--models", "model1", "--folds", "2",
+             "--mode", "fullconv"])
         engine = load_engine(engine_args)
 
         def segment(eng, case_dir, out_name=None):
@@ -504,7 +583,7 @@ def main() -> int:
             return seg, info, {k: round(v["dice"], 6) for k, v in ev["compound"].items()}
 
         def expect_counts(got, want, what):
-            print(f"{what}: launches per case {got} (16 forwards x the dispatch's layers: {want})")
+            print(f"{what}: launches per case {got} (forwards x the dispatch's layers: {want})")
             if got != want or not all(got[k] > 0 for k in want):
                 raise AssertionError(f"{what}: kernel launches {got} != {want}")
 
@@ -618,6 +697,75 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
+        def sliding_launches(cfg, bucket, folds=2):
+            """Launches of one sliding case: patches x 8/N x folds forwards,
+            each through the dispatch's kernel layers at (N, 128^3)."""
+            n = chunk[cfg]
+            forwards = len(patch_grid(bucket, patch)) * (8 // n) * folds
+            if cfg is MODEL1_BN:
+                return {"conv3d_tap_merged": forwards * len(tap_layers(patch, n)),
+                        "upconv2x": forwards * len(up_layers(MODEL1_BN, patch, n))}
+            return {"conv_stage": forwards * len(stage_layers(patch, n)),
+                    "upconv2x": forwards * len(up_layers(MODEL2_GN_LARGE, patch, n))}
+
+        with phase("6c sliding mode, model 1 (seed 200, 240x240x155)"):
+            engine_s = load_engine(build_parser().parse_args(
+                ["segment", "--input", str(flagship), "--output", str(tmp / "out_s"),
+                 "--checkpoints", str(CKPTS), "--models", "model1", "--folds", "2",
+                 "--mode", "sliding"]))
+            reset_counts()
+            segs, infos, dices = segment(engine_s, flagship)
+            got = counts()
+            sb = tuple(infos["bucket_shape"])
+            want = sliding_launches(MODEL1_BN, sb)
+            expect_counts({k: got[k] for k in want}, want,
+                          f"sliding, model 1, {len(patch_grid(sb, patch))} patches of {sb}")
+            if got["conv_stage"] or int8_matmul.launches:
+                raise AssertionError(f"sliding model 1 launched conv_stage or int8_matmul: {got}")
+            print(json.dumps({"sliding_model1": {
+                "case": "BraTS-SYN-00200-000 240x240x155",
+                "models": "model1 (2 trained folds), 8-flip TTA in chunks of 8, sliding",
+                "padded_shape": sb, "patches": len(patch_grid(sb, patch)), "launches": got,
+                "dice": dices, "s": infos["total_s"], "mode": infos["mode"],
+                "label_agreement_with_fullconv": float((segs == segf).mean()),
+                "note": "label agreement with the fullconv engine is information only"}}),
+                flush=True)
+            if min(dices.values()) < 0.99:
+                raise AssertionError(f"sliding Dice below 0.99: {dices}")
+            del engine_s
+            torch.cuda.empty_cache()
+
+        with phase("6d feature steps: native EDT vs scipy (seed 200, 240x240x155)"):
+            # run_all_steps from the files (decode, context, six steps) on
+            # the pipeline's segmentation, in turns: native, scipy, scipy, native
+            seg_file = result.output_folder / f"{find_cases(flagship)[0].case_id}_brats.nii.gz"
+            real_edt_sq = native.edt_sq
+
+            def scipy_route(mask):
+                raise IOError("the scipy route, for comparison")
+
+            secs, summaries = {"native": [], "scipy": []}, {}
+            for i, which in enumerate(("native", "scipy", "scipy", "native")):
+                if which == "scipy" or not native.native_available():
+                    native.edt_sq = scipy_route
+                try:
+                    t0 = time.perf_counter()
+                    run_all_steps(flagship, seg_file, tmp / f"features_{i}")
+                    secs[which].append(time.perf_counter() - t0)
+                finally:
+                    native.edt_sq = real_edt_sq
+                summaries[which] = json.loads(
+                    (tmp / f"features_{i}" / "llm_ready_summary.json").read_text())
+                summaries[which].pop("analysis_date")  # the clock, not a feature
+            same = summaries["native"] == summaries["scipy"]
+            print(json.dumps({"features": {
+                "case": "BraTS-SYN-00200-000 240x240x155", "native_available":
+                native.native_available(), "native_s": secs["native"], "scipy_s": secs["scipy"],
+                "native_s_min": min(secs["native"]), "scipy_s_min": min(secs["scipy"]),
+                "summaries_equal": same}}), flush=True)
+            if not same:
+                raise AssertionError("the feature summary differs between the native EDT and scipy")
+
         with phase("7 model 2 on real activations"):
             # one full-width MODEL2_GN_LARGE forward of the seed-50 volume;
             # every conv_stage launch is held against the plain version on
@@ -685,6 +833,9 @@ def main() -> int:
             want["conv_stage"] = 16 * len(stage_layers(main_bucket))
             want["upconv2x"] += 16 * len(up_layers(MODEL2_GN_LARGE, main_bucket))
             expect_counts(main_launches, want, f"two models at bucket {info2['bucket_shape']}")
+            want_route = "native" if native.native_available() else "python"
+            if info2["decode_route"] != want_route:
+                raise AssertionError(f"decode route {info2['decode_route']} != {want_route}")
             times2, _, peak2 = timed(engine2, brats_size)
             print(json.dumps({
                 "case": "BraTS-SYN-00050-000 240x240x155",
@@ -695,13 +846,134 @@ def main() -> int:
                 "analytic_tflop_per_case": (forward_flops(MODEL1_BN, main_bucket)
                                             + forward_flops(MODEL2_GN_LARGE, main_bucket))
                                            * 16 / 1e12,
-                "dice": dice2,
+                "dice": dice2, "decode_route": info2["decode_route"],
                 "note": "Dice is information only: model 2's weights are random",
             }), flush=True)
 
+        # the ET rule, watched: the softmax ensemble runs it once per case,
+        # the label ensemble never
+        et_calls = []
+        real_et_rule = engine_mod.et_min_size_postprocess
+
+        def counting_et_rule(*a, **kw):
+            et_calls.append(1)
+            return real_et_rule(*a, **kw)
+
+        with phase("8b two-model engine, sliding mode (seed 50, 240x240x155)"):
+            engine2s = load_engine(build_parser().parse_args(
+                ["segment", "--input", str(brats_size), "--output", str(tmp / "out2s"),
+                 "--checkpoints", str(root), "--models", "model1,model2", "--folds", "2",
+                 "--random-weights", "--mode", "sliding"]))
+            engine_mod.et_min_size_postprocess = counting_et_rule
+            try:
+                reset_counts()
+                _, info2s, dice2s = segment(engine2s, brats_size)
+            finally:
+                engine_mod.et_min_size_postprocess = real_et_rule
+            sliding_counts = counts()
+            sb = tuple(info2s["bucket_shape"])
+            n_patches = len(patch_grid(sb, patch))
+            want = sliding_launches(MODEL1_BN, sb)
+            for k, v in sliding_launches(MODEL2_GN_LARGE, sb).items():
+                want[k] = want.get(k, 0) + v
+            expect_counts(sliding_counts, want, f"sliding, two models, {n_patches} patches of {sb}")
+            if int8_matmul.launches or len(et_calls) != 1:
+                raise AssertionError(f"int8_matmul launched or ET rule calls {len(et_calls)} != 1")
+            times2s, _, peak2s = timed(engine2s, brats_size)
+            profile_case(torch, lambda: segment(engine2s, brats_size), None, what="sliding")
+            print(json.dumps({"sliding_two_models": {
+                "case": "BraTS-SYN-00050-000 240x240x155",
+                "models": "model1 (2 trained folds) + model2 (init_params seeds 1000, 1001)",
+                "padded_shape": sb, "patches": n_patches,
+                "mirror_chunk": {"model1": chunk[MODEL1_BN], "model2": chunk[MODEL2_GN_LARGE]},
+                "s_per_case_min": min(times2s), "s_per_case_median": statistics.median(times2s),
+                "s_per_case": times2s, "kernel_launches_per_case": sliding_counts,
+                "max_memory_allocated_bytes": peak2s,
+                "analytic_tflop_per_case": (forward_flops(MODEL1_BN, patch)
+                                            + forward_flops(MODEL2_GN_LARGE, patch))
+                                           * n_patches * 8 * 2 / 1e12,
+                "fullconv_same_run": {"s_per_case_min": min(times2),
+                                      "s_per_case_median": statistics.median(times2),
+                                      "s_per_case": times2, "bucket": info2["bucket_shape"],
+                                      "max_memory_allocated_bytes": peak2},
+                "dice": dice2s, "note": "Dice is information only: model 2's weights are random",
+            }}), flush=True)
+
+        with phase("8c two-model label ensemble (sliding, seed 50)"):
+            # the label run: round(mean of the models' label maps), checked
+            # against that recipe on the engine's own probabilities, and no
+            # ET rule
+            seen = {}
+            ensemble_labels = type(engine2s)._ensemble_labels
+
+            def watching(per_model_probs, pre):
+                out = ensemble_labels(engine2s, per_model_probs, pre)
+                segs = [region_probs_to_labels(p)[pre.undo_slices].cpu().numpy()
+                        for p in per_model_probs]
+                seen["manual"] = np.round(sum(s.astype(np.float32) for s in segs)
+                                          / len(segs)).astype(np.uint8)
+                seen["ties"] = int(((segs[0].astype(np.int32) + segs[1]) % 2).sum())
+                seen["out"] = out
+                return out
+
+            engine2s.ensemble, engine2s._ensemble_labels = "label", watching
+            et_calls.clear()
+            engine_mod.et_min_size_postprocess = counting_et_rule
+            try:
+                reset_counts()
+                segl, infol, dicel = segment(engine2s, brats_size)
+            finally:
+                engine_mod.et_min_size_postprocess = real_et_rule
+                engine2s.ensemble = "softmax"
+                del engine2s._ensemble_labels
+            label_counts = counts()
+            labels = sorted(int(v) for v in np.unique(segl))
+            print(json.dumps({"label_ensemble": {
+                "case": "BraTS-SYN-00050-000 240x240x155", "ensemble": infol["ensemble"],
+                "labels": labels, "ties_rounded_half_to_even": seen["ties"],
+                "et_rule_calls": len(et_calls), "launches": label_counts, "dice": dicel,
+                "equals_round_of_mean_labels": bool(np.array_equal(seen["out"], seen["manual"])),
+                "note": "Dice is information only: model 2's weights are random"}}), flush=True)
+            if infol["ensemble"] != "label" or et_calls or not set(labels) <= {0, 1, 2, 3}:
+                raise AssertionError(f"label ensemble: {infol['ensemble']}, ET rule calls "
+                                     f"{len(et_calls)}, labels {labels}")
+            if not np.array_equal(seen["out"], seen["manual"]) or label_counts != sliding_counts:
+                raise AssertionError("label ensemble differs from round(mean of label maps) "
+                                     f"or launched {label_counts} != {sliding_counts}")
+            del engine2s
+            torch.cuda.empty_cache()
+
+        with phase("8d cli segment's loop over three cases: serial vs prefetched"):
+            # cmd_segment's loop with the two-model fullconv engine over three
+            # 240x240x155 cases, each saved: decode inside predict_case
+            # (serial) or on CasePrefetcher's thread; in turns
+            cases3 = [find_cases(d)[0] for d in (brats_size, flagship, third)]
+            out3 = tmp / "out3"
+
+            def serial():
+                for case in cases3:
+                    engine2.predict_case(case, out3 / f"{case.case_id}.nii.gz")
+
+            def prefetched():
+                for case, loaded in CasePrefetcher(cases3):
+                    engine2.predict_case(case, out3 / f"{case.case_id}.nii.gz", loaded=loaded)
+
+            walls = {"serial": [], "prefetched": []}
+            for which in ("serial", "prefetched", "prefetched", "serial"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (serial if which == "serial" else prefetched)()
+                torch.cuda.synchronize()
+                walls[which].append(time.perf_counter() - t0)
+            print(json.dumps({"prefetch": {
+                "cases": [c.case_id for c in cases3], "engine": "two models, fullconv",
+                "serial_s": walls["serial"], "prefetched_s": walls["prefetched"],
+                "serial_s_min": min(walls["serial"]),
+                "prefetched_s_min": min(walls["prefetched"])}}), flush=True)
+
         with phase("9 profile of one two-model case"):
             profile_case(torch, lambda: segment(engine2, brats_size),
-                         Path(args.trace) if args.trace else None)
+                         Path(args.trace) if args.trace else None, what="fullconv")
 
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
@@ -723,6 +995,7 @@ def main() -> int:
             "replaces": replaces[name][0], "replaces_function": replaces[name][1],
             "checked": True, "launches": main_launches[name],
             "launches_on_main_path": main_launches[name],
+            "launches_sliding": sliding_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name]),
             "shape": h["shape"], "ms": h["kernel_ms"], "device_ms": h.get("device_ms"),
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -307,7 +307,7 @@ def test_pipeline_engines_match_reference(tmp_path, monkeypatch):
     teng = InferenceEngine(
         models=[ModelBundle.from_folds(
             unet3d.MODEL1_BN, [params_from_jax(load_pytree_npz(npz), unet3d.MODEL1_BN)])],
-        tta=False, output_convention="internal", device="cpu")
+        mode="fullconv", tta=False, output_convention="internal", device="cpu")
     want = JaxPipeline(jeng, JaxPipelineConfig(output_root=tmp_path / "ref")).run_case(case)
     got = Pipeline(teng, PipelineConfig(output_root=tmp_path / "port")).run_case(case)
     assert got.succeeded and want.succeeded

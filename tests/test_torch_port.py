@@ -59,10 +59,15 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     assert len(mods) >= 20  # every subpackage and module was imported
+    for m in ("braintpu_torch.native", "braintpu_torch.infer.sliding_window",
+              "braintpu_torch.infer.gaussian"):
+        assert m in mods
 
 
 def test_no_port_file_names_jax_or_the_reference_package():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cpp"))
+             + [REPO / "chip_smoke.py"])
+    assert PORT / "native" / "nifti_native.cpp" in files
     imports_ref = re.compile(r"^\s*(import|from)\s+braintpu(\.|\s|$)", re.M)
     for f in files:
         text = f.read_text()
@@ -106,18 +111,24 @@ def test_engine_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     bundle = _tiny_bundle()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        InferenceEngine(models=[bundle])
+        InferenceEngine(models=[bundle], mode="fullconv")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
-    eng = InferenceEngine(models=[bundle], device="cpu")
+    eng = InferenceEngine(models=[bundle], mode="fullconv", device="cpu")
     assert eng.device == torch.device("cpu")
     assert eng.warmup((20, 24, 16)) > 0  # a dummy case through the whole engine
 
 
 def test_engine_rejects_what_is_not_ported():
+    """Sliding mode and the label ensemble are ported; a mode or ensemble
+    the engine does not have, and the reference's mesh options, are refused."""
     bundle = _tiny_bundle()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        InferenceEngine(models=[bundle], mode="sliding", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        InferenceEngine(models=[bundle], mode="axial", device="cpu")
+    with pytest.raises(ValueError, match="ensemble"):
+        InferenceEngine(models=[bundle], ensemble="vote", device="cpu")
+    with pytest.raises(TypeError, match="spatial_shard"):
+        InferenceEngine(models=[bundle], spatial_shard=True, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         unet3d.apply_unet({}, torch.zeros(1, 32, 32, 32, 4), unet3d.MODEL1_BN, folded=False)
 
@@ -530,6 +541,76 @@ def test_gpu_two_model_engine_launches_both_new_kernels(cuda, tmp_path):
                 for s, st, co, c2 in unet3d.deferred_layers(unet3d.MODEL2_GN_LARGE, bucket))
     after = conv3d_tap_merged.launches, conv_stage.launches, upconv2x.launches
     assert tuple(a - b for a, b in zip(after, before)) == (3, stage, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape", [
+    ("tap", (8, 64, 64, 64, 128, 64)),           # model 1, level 1 of a 128^3 patch, 8 mirrors
+    ("stage", (4, 128, 128, 128, 64, 64, 64)),   # model 2, level 0 concat, 4 mirrors
+    ("stage", (4, 8, 8, 8, 320, 320, 320)),
+    ("upconv", (8, 64, 64, 64, 64, 32)),
+    ("upconv", (4, 4, 4, 4, 320, 320)),
+])
+def test_gpu_kernels_at_sliding_batch_shapes(cuda, kind, shape):
+    """The three segmentation kernels at the batch shapes of sliding mode
+    (mirror copies of a 128^3 patch along N), against their plain versions;
+    conv_stage's statistics per sample."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, device=cuda, generator=g)
+    if kind == "tap":
+        N, D, H, W, ci, co = shape
+        x, w = rnd(N, D, H, W, ci).bfloat16(), (rnd(3, 3, 3, ci, co) / (27 * ci) ** 0.5).bfloat16()
+        b = rnd(co) * 0.1
+        fn, got, ref = conv3d_tap_merged, lambda: conv3d_tap_merged(x, w, b, 0.01), \
+            lambda: conv3d_tap_merged_ref(x, w, b, 0.01)
+    elif kind == "upconv":
+        N, D, H, W, ci, co = shape
+        x, w = rnd(N, D, H, W, ci).bfloat16(), (rnd(ci, 2, 2, 2, co) / ci ** 0.5).bfloat16()
+        fn, got, ref = upconv2x, lambda: upconv2x(x, w), lambda: upconv2x_ref(x, w)
+    else:
+        N, D, H, W, ci1, ci2, co = shape
+        x1, w, b, x2, aff = _stage_args(N, D, H, W, ci1, ci2, co, device=cuda)
+        kw = dict(x2=x2, in1_slope=0.01, in2_slope=0.01, stats=True, **aff)
+        fn, got, ref = conv_stage, lambda: conv_stage(x1, w, b, **kw), \
+            lambda: conv_stage_ref(x1, w, b, **kw)
+    before = fn.launches
+    out, want = got(), ref()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if kind == "stage":
+        (y, s1, s2), (ry, r1, r2) = out, want
+        assert s1.shape == (N, co) and s2.shape == (N, co)
+        sum_abs = ry.float().abs().sum((1, 2, 3))
+        assert torch.all((s1 - r1).abs() <= 1e-3 * sum_abs)
+        assert torch.all((s2 - r2).abs() <= 1e-3 * r2)
+        out, want = y, ry
+    assert (out.float() - want.float()).abs().max().item() <= 0.02 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gpu_sliding_engine_launches_per_patch_mirror_chunk_and_fold(cuda, tmp_path):
+    """Model 1 (2 trained folds) in sliding mode on a case of one 128^3
+    patch: 8 mirrors in one chunk, so 2 forwards at N = 8, each through the
+    tap kernel's 3 layers and 5 up-convs; Dice against the ground truth."""
+    from braintpu_torch.io.brats import find_cases
+    from braintpu_torch.labels.convert import normalize_to_brats2025
+    from braintpu_torch.metrics.segmentation import evaluate_segmentation
+
+    case = write_synth_case(tmp_path, "BraTS-SYN-00200-000", seed=200, shape=(128, 128, 112))
+    args = cli.build_parser().parse_args(
+        ["segment", "--input", str(case), "--output", str(tmp_path / "o"), "--checkpoints",
+         str(CKPTS), "--models", "model1", "--folds", "2", "--mode", "sliding"])
+    eng = cli.load_engine(args)
+    before = conv3d_tap_merged.launches, upconv2x.launches
+    seg, info = eng.predict_case(find_cases(case)[0])
+    torch.cuda.synchronize()
+    assert info["mode"] == "sliding" and info["bucket_shape"] == (128, 128, 128)
+    after = conv3d_tap_merged.launches, upconv2x.launches
+    assert (after[0] - before[0], after[1] - before[1]) == (2 * 3, 2 * 5)
+    gt = nifti.load(find_cases(case)[0].seg_path).get_fdata(np.float32).round().astype(np.int32)
+    ev = evaluate_segmentation(normalize_to_brats2025(seg).astype(np.int32),
+                               normalize_to_brats2025(gt).astype(np.int32))
+    assert min(v["dice"] for v in ev["compound"].values()) >= 0.99
 
 
 def _int8_operands(seed, M, K, N):
