@@ -11,13 +11,23 @@
     python -m braintpu_torch.cli convert-labels SEG [OUT] --format brats2025
     python -m braintpu_torch.cli check-labels SEG
     python -m braintpu_torch.cli rename CASE_DIR [--dry-run]
+    python -m braintpu_torch.cli init-config [braintpu_torch.config.json]
+    python -m braintpu_torch.cli pipeline CASE_DIR --config braintpu_torch.config.json
+    python -m braintpu_torch.cli serve --port 8000 --root serve_data \\
+        --checkpoints results/trained_synth/checkpoints --folds 2 --random-weights
+    python -m braintpu_torch.cli rag --question "What is midline shift?" [--report R]
+    python -m braintpu_torch.cli build-kb --output kb.npz [--knowledge-dir DIR]
+    python -m braintpu_torch.cli check-env [--checkpoints DIR]
 
 The subcommands and flags follow ``braintpu/cli.py`` for what the port has
 (model1 and model2, npz checkpoints, ``--random-weights``, ``--mode
 {sliding,fullconv}`` with fullconv as the default for these models, as the
 reference's ``load_engine`` chooses, ``--ensemble {softmax,label}``), plus
-``--device`` on the commands that build an engine: the card by default,
-``cpu`` only when asked for.
+``--device`` on the commands that build an engine or a vector store: the
+card by default, ``cpu`` only when asked for.  One deliberate change:
+``serve`` exits non-zero when its warm-up fails (the reference prints that
+the first request will compile and serves on), because warm-up is where
+the kernels build and load, and no job could succeed after it failed.
 """
 
 from __future__ import annotations
@@ -120,12 +130,31 @@ def cmd_evaluate(args) -> int:
 def cmd_pipeline(args) -> int:
     from .pipeline import Pipeline, PipelineConfig
 
-    engine = load_engine(args)
-    cfg = PipelineConfig(
-        output_root=Path(args.output),
-        use_llm_refinement=args.use_llm,
-        generate_pdf=not args.no_pdf,
-    )
+    if args.config:
+        from .utils.config import load_config
+
+        fc = load_config(args.config)
+        s = fc.segmentation
+        args.models = ",".join(s.models)
+        args.folds = s.folds
+        args.no_tta = not s.tta
+        args.ensemble = s.ensemble
+        args.no_et_postprocess = s.et_min_voxels == 0
+        args.checkpoints = args.checkpoints or s.checkpoints
+        # the config's mode is applied before the engine is built, as the
+        # reference does (its load_engine validates the mode per model)
+        args.mode = s.mode
+        engine = load_engine(args)
+        engine.step_size = s.step_size
+        engine.et_min_voxels = s.et_min_voxels
+        cfg = fc.pipeline_config()
+    else:
+        engine = load_engine(args)
+        cfg = PipelineConfig(
+            output_root=Path(args.output),
+            use_llm_refinement=args.use_llm,
+            generate_pdf=not args.no_pdf,
+        )
     pipeline = Pipeline(
         engine,
         cfg,
@@ -221,6 +250,92 @@ def cmd_rename(args) -> int:
     return 0
 
 
+def cmd_init_config(args) -> int:
+    from .utils.config import FrameworkConfig, save_config
+
+    save_config(FrameworkConfig(), args.output)
+    print(f"wrote default config → {args.output}")
+    return 0
+
+
+def cmd_rag(args) -> int:
+    from .rag import RagAssistant, build_vector_store, load_vector_store
+
+    store = load_vector_store(args.store, device=args.device) if args.store else \
+        build_vector_store(knowledge_dir=args.knowledge_dir, device=args.device)
+    assistant = RagAssistant(store=store)
+    report_text = Path(args.report).read_text(encoding="utf-8") if args.report else ""
+    if args.question:
+        print(assistant.answer_query(args.question, report_text))
+        return 0
+    if args.test:
+        sample_questions = [
+            "What is midline shift?",
+            "What does peritumoral edema mean?",
+            "Why does a tumor enhance with contrast?",
+            "What is the whole tumor volume?",
+            "What MRI sequences were used?",
+            "What is a glioma?",
+        ]
+        for q in sample_questions:
+            best = store.retrieve(q, 2)[0]
+            print(f"Q: {q}\n   → {best[0].title} (score {best[1]:.3f})")
+        return 0
+    assistant.interactive(report_text)
+    return 0
+
+
+def cmd_build_kb(args) -> int:
+    from .rag import build_vector_store
+
+    store = build_vector_store(knowledge_dir=args.knowledge_dir, device=args.device)
+    store.save(args.output)
+    print(f"embedded {len(store.docs)} documents → {args.output} "
+          f"(top-k route when queried: {store.route})")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    import threading
+
+    from .serve import make_server
+
+    engine = load_engine(args)
+    server = make_server(engine, Path(args.root), host=args.host, port=args.port)
+    failed = []
+    if not args.no_warmup:
+        # build the kernels and run one dummy case off the request path, on
+        # a thread so that the port binds at once.  A failure here (nvcc, a
+        # library that does not load, a kernel that does not launch) means
+        # no job can succeed: stop the server and exit non-zero.
+        def _warm():
+            try:
+                print(f"engine warmup done in {engine.warmup():.1f}s", flush=True)
+            except Exception as e:
+                failed.append(e)
+                print(f"engine warmup failed, shutting down: {type(e).__name__}: {e}", flush=True)
+                server.shutdown()
+
+        threading.Thread(target=_warm, daemon=True, name="engine-warmup").start()
+    print(f"serving on http://{args.host}:{server.server_address[1]}  (root: {args.root})",
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 1 if failed else 0
+
+
+def cmd_check_env(args) -> int:
+    from .utils import format_env_report, run_env_checks
+
+    checks = run_env_checks(Path(args.checkpoints) if args.checkpoints else None)
+    print(format_env_report(checks))
+    return 0 if all(c["ok"] for c in checks) else 1
+
+
 def _add_engine_args(p, convention_default=None) -> None:
     """The flags that build an engine (see :func:`load_engine`)."""
     p.add_argument("--checkpoints", help="checkpoint root: model{1,2}/fold_N.npz layout")
@@ -255,8 +370,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="results")
     p.add_argument("--use-llm", action="store_true")
     p.add_argument("--no-pdf", action="store_true")
+    p.add_argument("--config", help="FrameworkConfig JSON (overrides flag defaults)")
     _add_engine_args(p)
     p.set_defaults(fn=cmd_pipeline)
+
+    p = sub.add_parser("init-config", help="write the default FrameworkConfig JSON")
+    p.add_argument("output", nargs="?", default="braintpu_torch.config.json")
+    p.set_defaults(fn=cmd_init_config)
 
     p = sub.add_parser("segment", help="ensemble segmentation only")
     p.add_argument("--input", required=True, help="case folder (or a root of case folders)")
@@ -300,6 +420,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report", required=True)
     p.add_argument("--output")
     p.set_defaults(fn=cmd_pdf)
+
+    store_device = "device of a large store's top-k; default: the card (cuda)"
+    p = sub.add_parser("rag", help="educational Q&A assistant")
+    p.add_argument("--report")
+    p.add_argument("--question")
+    p.add_argument("--store")
+    p.add_argument("--knowledge-dir")
+    p.add_argument("--test", action="store_true", help="run canned retrieval checks")
+    p.add_argument("--device", default=None, help=store_device)
+    p.set_defaults(fn=cmd_rag)
+
+    p = sub.add_parser("build-kb", help="embed a knowledge base into a vector store")
+    p.add_argument("--knowledge-dir")
+    p.add_argument("--output", required=True)
+    p.add_argument("--device", default=None, help=store_device)
+    p.set_defaults(fn=cmd_build_kb)
+
+    p = sub.add_parser("serve", help="REST API + web UI")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--root", default="serve_data")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the background kernel build and dummy case at startup")
+    _add_engine_args(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("check-env", help="environment preflight checks")
+    p.add_argument("--checkpoints")
+    p.set_defaults(fn=cmd_check_env)
 
     p = sub.add_parser("rename", help="BraTS-2025 → 2021 filename conversion")
     p.add_argument("folder")

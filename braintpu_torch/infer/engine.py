@@ -40,19 +40,11 @@ from ..labels.convert import internal_to_brats2021, internal_to_brats2025
 from ..labels.postprocess import et_min_size_postprocess
 from ..models.unet3d import UNetConfig, fold_batchnorm
 from ..pre.preprocess import preprocess_case
+from ..utils.device import resolve_device
 from .fullconv import predict_probs_fullconv
 from .sliding_window import predict_probs, region_probs_to_labels
 
 __all__ = ["ModelBundle", "InferenceEngine", "calculate_volumes", "uncrop_labels", "resolve_device"]
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """``None`` means the card.  Raises when the card is asked for and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: braintpu_torch runs on the card unless device='cpu' is passed")
-    return dev
 
 
 def _map_tree(fn, tree):

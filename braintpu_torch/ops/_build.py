@@ -23,9 +23,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Any, Dict, List, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "bind", "build_all", "count_launch", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,6 +37,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_launchers: Dict[str, Any] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -126,3 +128,31 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: Sequence[Any]):
+    """The C launcher ``<name>_launch`` of ``csrc/<name>.cu`` (built and
+    loaded first if needed), returning ``int`` and taking ``argtypes``.
+
+    Bound once per process; job threads may call it at once: each binding
+    is a function object of its own whose signature is set before it is
+    published.
+    """
+    fn = _launchers.get(name)
+    if fn is None:
+        lib = load_library(name)
+        with _lock:
+            fn = _launchers.get(name)
+            if fn is None:
+                fn = lib[f"{name}_launch"]  # a new object, not CDLL's shared attribute
+                fn.restype = ctypes.c_int
+                fn.argtypes = list(argtypes)
+                _launchers[name] = fn
+    return fn
+
+
+def count_launch(kernel) -> None:
+    """``kernel.launches += 1`` under a lock: jobs on several threads launch
+    kernels at once, and an unguarded read-modify-write can lose a count."""
+    with _count_lock:
+        kernel.launches += 1

@@ -94,8 +94,7 @@ def conv3d_tap_merged(
     plan = conv_plan(N, D, H, W, ci, co)
     if plan is None:
         raise ValueError(f"no launch plan for x {tuple(x.shape)} -> co={co}")
-    lib = _lib()
-    rc = lib.conv3d_tap_merged_launch(
+    rc = _build.bind("conv3d_tap_merged", _ARGTYPES)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
         N, D, H, W, ci, co,
         float(negative_slope or 0.0), int(negative_slope is not None),
@@ -104,18 +103,12 @@ def conv3d_tap_merged(
     )
     if rc != 0:
         raise RuntimeError(f"conv3d_tap_merged launch failed: cudaError {rc} ({plan.describe()})")
-    conv3d_tap_merged.launches += 1
+    _build.count_launch(conv3d_tap_merged)
     return y
 
 
 conv3d_tap_merged.launches = 0
 
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("conv3d_tap_merged")
-    fn = lib.conv3d_tap_merged_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
-    return lib
+#: x, w, b, y; N, D, H, W, ci, co; slope; leaky, then the plan; stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 7
+             + [ctypes.c_longlong, ctypes.c_void_p])

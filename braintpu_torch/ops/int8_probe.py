@@ -90,8 +90,8 @@ def int8_matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    launch, raw_stream = _launcher or _bind()
-    stream = raw_stream(x.device.index)
+    launch = _build.bind("int8_matmul", _ARGTYPES)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     if int8_route(M, N, K, x.data_ptr(), y.data_ptr()) == "wgmma":
         yt = x.new_empty((N, K))
         tiles = -(-M // G_BM) * -(-N // G_BN)
@@ -101,22 +101,12 @@ def int8_matmul(x: torch.Tensor, y: torch.Tensor, bm: int = 512, bn: int = 512,
         rc = launch(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K, None, 0, stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError {rc}")
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return out
 
 
 int8_matmul.launches = 0
 
-_launcher = None
-
-
-def _bind():
-    """Bind the C launcher once (building the library on first use), with
-    the raw handle of the device's current stream."""
-    global _launcher
-    fn = _build.load_library("int8_matmul").int8_matmul_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
-                                                                ctypes.c_void_p]
-    _launcher = fn, torch._C._cuda_getCurrentRawStream
-    return _launcher
+#: x, y, out; M, N, K; the transpose buffer (or NULL), the persistent grid; stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
+                                                          ctypes.c_void_p]

@@ -186,7 +186,7 @@ def conv_stage(
              | (_OUT_SLOPE if out_slope is not None else 0) | (_STATS if stats else 0))
     ptr = lambda t: 0 if t is None else t.data_ptr()
     stride = lambda t, ci: ci if (t is not None and t.dim() == 2) else 0
-    rc = _lib().conv_stage_launch(
+    rc = _build.bind("conv_stage", _ARGTYPES)(
         ptr(x1), ptr(x2), ptr(w), ptr(b), ptr(a1), ptr(c1), ptr(a2), ptr(c2),
         ptr(y), ptr(s1), ptr(s2),
         N, D, H, W, ci1, ci2, co, stride(a1, ci1), stride(a2, ci2),
@@ -196,18 +196,13 @@ def conv_stage(
     )
     if rc != 0:
         raise RuntimeError(f"conv_stage launch failed: cudaError {rc} ({plan.describe()})")
-    conv_stage.launches += 1
+    _build.count_launch(conv_stage)
     return (y, s1, s2) if stats else y
 
 
 conv_stage.launches = 0
 
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load_library("conv_stage")
-    fn = lib.conv_stage_launch
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
-    return lib
+#: 11 pointers; shape, channels and affine strides; three slopes; flags,
+#: then the plan; stream
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+             + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])

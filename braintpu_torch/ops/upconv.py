@@ -83,11 +83,11 @@ def upconv2x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     plan, args = _plan_args(N, D, H, W, ci, co)
     if plan is None:
         raise ValueError(f"upconv2x does not take x {tuple(x.shape)} -> co={co}")
-    launch, stream = _launcher or _bind()
-    rc = launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), args, stream(x.device.index))
+    rc = _build.bind("upconv2x", _ARGTYPES)(x.data_ptr(), w.data_ptr(), y.data_ptr(), args,
+                                            torch._C._cuda_getCurrentRawStream(x.device.index))
     if rc != 0:
         raise RuntimeError(f"upconv2x launch failed: cudaError {rc} ({plan.describe()})")
-    upconv2x.launches += 1
+    _build.count_launch(upconv2x)
     return y
 
 
@@ -105,15 +105,5 @@ def _plan_args(N: int, D: int, H: int, W: int, ci: int, co: int):
     return plan, (ctypes.c_longlong * 14)(N, D, H, W, ci, co, *plan.launch_args())
 
 
-_launcher = None
-
-
-def _bind():
-    """Bind the C launcher once (building the library on first use), with
-    the raw handle of the device's current stream."""
-    global _launcher
-    fn = _build.load_library("upconv2x").upconv2x_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    _launcher = fn, torch._C._cuda_getCurrentRawStream
-    return _launcher
+#: x, w, y, the argument block of _plan_args, the raw stream handle
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]

@@ -41,8 +41,10 @@ from ..io import nifti
 from ..io.brats import MODALITIES, find_cases, load_case_volumes, rename_brats2025_folder
 from ..labels.convert import (
     brats2021_to_brats2025,
-    normalize_to_brats2025,
+    brats2025_to_brats2021,
+    internal_to_brats2021,
     internal_to_brats2025,
+    normalize_to_brats2025,
 )
 from ..metrics.segmentation import evaluate_segmentation
 from ..report import generate_pdf_report, generate_report_from_summary, refine_report
@@ -76,17 +78,21 @@ class StageEvent:
         return dataclasses.asdict(self)
 
 
-#: transient-failure tolerance for the device-dependent segmentation stage
-#: (the reference aborts on first error, run_full_pipeline.py:187); each
-#: retry emits a "retry" StageEvent before re-running.
-SEGMENT_RETRIES = 1
-
-
 @dataclass
 class PipelineConfig:
     output_root: Path = Path("results")
+    evaluate_if_gt: bool = True
     generate_pdf: bool = True
     use_llm_refinement: bool = False
+    save_brats_convention: str = "brats2025"
+    fail_fast: bool = False
+    #: transient-failure tolerance for the device-dependent segmentation
+    #: stage (upstream run_full_pipeline.py:187 aborts on the first error);
+    #: each retry emits a "retry" StageEvent before re-running.
+    segment_retries: int = 1
+    #: test seam: called with the stage name before each stage body runs --
+    #: raise from it to inject a fault (None in production).
+    fault_hook: Optional[Callable[[str], None]] = None
 
 
 @dataclass
@@ -150,6 +156,7 @@ class _SegOutcome:
     gt: Optional[_Prefetched] = None
     t_start: float = 0.0
     failed: bool = False
+    exc: Optional[BaseException] = None
 
 
 class Pipeline:
@@ -181,6 +188,8 @@ class Pipeline:
     def run_case(self, case_folder) -> PipelineResult:
         outcome = self._segment_stage(Path(case_folder))
         if outcome.failed:
+            if self.config.fail_fast and outcome.exc is not None:
+                raise outcome.exc
             return outcome.result
         return self._host_stages(outcome)
 
@@ -212,6 +221,8 @@ class Pipeline:
                 if i + 1 < len(folders):
                     fut = pool.submit(self._segment_stage, folders[i + 1])
                 if outcome.failed:
+                    if self.config.fail_fast and outcome.exc is not None:
+                        raise outcome.exc
                     results.append(outcome.result)
                 else:
                     results.append(self._host_stages(outcome))
@@ -256,17 +267,19 @@ class Pipeline:
             loaded = load_case_volumes(case)
             decode_s = time.perf_counter() - t_dec0
             outcome.loaded = loaded
-            if case.seg_path is not None:
+            if self.config.evaluate_if_gt and case.seg_path is not None:
                 gt_path = case.seg_path
                 outcome.gt = _Prefetched(
                     lambda: np.round(nifti.load_f32(gt_path)[0]).astype(np.int32)
                 )
-            for attempt in range(SEGMENT_RETRIES + 1):
+            for attempt in range(self.config.segment_retries + 1):
                 try:
+                    if self.config.fault_hook:
+                        self.config.fault_hook("segmenting")
                     seg, info = self.engine.predict_case(case, seg_path, loaded=loaded)
                     break
                 except Exception as e:
-                    if attempt >= SEGMENT_RETRIES:
+                    if attempt >= self.config.segment_retries:
                         raise
                     self._emit(
                         result, "segmenting", "retry",
@@ -289,6 +302,7 @@ class Pipeline:
         except Exception as exc:
             self._finalize_error(result, exc)
             outcome.failed = True
+            outcome.exc = exc
             return outcome
 
     def _host_stages(self, outcome: _SegOutcome) -> PipelineResult:
@@ -303,20 +317,24 @@ class Pipeline:
         out = result.output_folder
         t_start = outcome.t_start
         try:
-            # stage 3: label conversion → BraTS-2025 artifact (ET=3; ref
-            # convert_labels_to_brats.py:34-55)
+            # stage 3: label conversion → BraTS-convention artifact
+            # (config.save_brats_convention: "brats2025" ET=3 or "brats2021"
+            # ET=4; ref convert_labels_to_brats.py:34-55)
             self._emit(result, "converting", "start")
             data, affine, zooms = loaded
+            want = self.config.save_brats_convention
             have = self.engine.output_convention
             if have == "internal":
-                seg_brats = np.asarray(internal_to_brats2025(seg)).astype(np.uint8)
-            elif have == "brats2021":
-                seg_brats = np.asarray(brats2021_to_brats2025(seg)).astype(np.uint8)
+                conv = internal_to_brats2021 if want == "brats2021" else internal_to_brats2025
+                seg_brats = np.asarray(conv(seg)).astype(np.uint8)
+            elif have != want:
+                conv = brats2025_to_brats2021 if want == "brats2021" else brats2021_to_brats2025
+                seg_brats = np.asarray(conv(seg)).astype(np.uint8)
             else:
                 seg_brats = seg.astype(np.uint8)
             brats_path = out / f"{case.case_id}_brats.nii.gz"
             nifti.save(seg_brats, brats_path, affine=affine)
-            self._emit(result, "converting", "ok", path=str(brats_path), convention="brats2025")
+            self._emit(result, "converting", "ok", path=str(brats_path), convention=want)
 
             # stage 4: evaluation against ground truth (when shipped;
             # ground truth ships in BraTS label space — 2021 datasets use
@@ -337,10 +355,10 @@ class Pipeline:
                     t_join = time.perf_counter() - t0
                     # vintage-agnostic: maps BOTH ET spellings (2021: 4,
                     # 2025: 3) to 3 — the strict 2021→2025 map sends 3 to 0
-                    # and would erase ET from 2025-space ground truth; the
-                    # prediction is in 2025 space already
+                    # and would erase ET from 2025-space inputs (including
+                    # the prediction under save_brats_convention=brats2025)
                     gt_eval = np.asarray(normalize_to_brats2025(gt)).astype(np.int32)
-                    pred_eval = seg_brats.astype(np.int32)
+                    pred_eval = np.asarray(normalize_to_brats2025(seg_brats)).astype(np.int32)
                     t_norm = time.perf_counter() - t0 - t_join
                     metrics = evaluate_segmentation(pred_eval, gt_eval)
                     t_dice = time.perf_counter() - t0 - t_join - t_norm
@@ -363,10 +381,13 @@ class Pipeline:
             t_fe0 = time.perf_counter()
             fe_out = out / "feature_extraction"
             # feature steps read 2025-space labels (step3's ET-foci analysis
-            # is seg==3 by documented reference quirk), which seg_brats holds
+            # is seg==3 by documented reference quirk): normalize, so that
+            # save_brats_convention='brats2021' (ET=4) does not make step3
+            # call an enhancing tumor non-enhancing while step1 (which
+            # accepts 3|4) says enhancement is present
             ctx = FeatureContext.from_arrays(
                 modalities={m: data[i] for i, m in enumerate(MODALITIES)},
-                seg=seg_brats,
+                seg=np.asarray(normalize_to_brats2025(seg_brats)),
                 zooms=zooms[:3],
                 case_id=case.case_id,
                 affine=affine,
@@ -454,6 +475,8 @@ class Pipeline:
 
         except Exception as exc:
             self._finalize_error(result, exc)
+            if self.config.fail_fast:
+                raise
             return result
         finally:
             if result.journal_fh:

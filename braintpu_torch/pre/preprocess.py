@@ -25,6 +25,8 @@ import numpy as np
 import torch
 from scipy import ndimage as ndi
 
+from ..utils.device import resolve_device
+
 __all__ = [
     "CropInfo",
     "fill_holes",
@@ -141,13 +143,15 @@ def preprocess_case(
     data: np.ndarray,
     patch_size: Sequence[int] = (128, 128, 128),
     pad_multiple: Optional[int] = None,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[None, str, torch.device] = None,
 ) -> PreprocessResult:
-    """Crop -> pad -> masked z-score on ``device``.
+    """Crop -> pad -> masked z-score on ``device`` (``None``: the card; raises
+    when there is none, as :func:`braintpu_torch.utils.device.resolve_device`).
 
     ``data``: float (C, X, Y, Z) in canonical modality order.
     ``pad_multiple``: round padded axes up to this multiple (fullconv).
     """
+    device = resolve_device(device)
     cropped, mask, info = crop_to_nonzero(np.asarray(data, dtype=np.float32))
     with np.errstate(invalid="ignore"):  # NaN/overflow just fail the check
         as_i16 = cropped.astype(np.int16)

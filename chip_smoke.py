@@ -37,7 +37,16 @@ side: phase 2 builds the native host library (``braintpu_torch/native``,
 g++), phase 4c holds its decode bit-equal to the Python decode and times
 both, phase 6d times the feature steps with its EDT and with scipy's, and
 phase 8d runs ``cli segment``'s loop over three cases with and without the
-case prefetcher.  Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
+case prefetcher.  The serving slice: phase 4d holds the RAG store's
+device top-k (``torch.matmul`` + ``torch.topk`` on a 32,768 x 8,192 f32
+matrix) against numpy's and times both routes; phase 10 runs ``cli
+serve``'s server in this process with the two-model engine (warm-up, one
+job alone, then two jobs in flight at once, report / PDF / metrics / chat
+requests, launches against the formula, the served labels against a direct
+``Pipeline.run_case``); phase 10b starts ``python -m braintpu_torch.cli
+serve`` as a process, serves one job and stops it with SIGINT; phase 10c
+runs ``check-env``, which must pass on the card.  Every phase prints its
+wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
 in the repository; cases and outputs go to a temporary directory.
@@ -49,12 +58,16 @@ import argparse
 import contextlib
 import gzip
 import json
+import os
+import queue
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -316,6 +329,174 @@ def check_upconv(torch, shape, co, seed: int) -> dict:
             "plan": upconv_plan(N, D, H, W, ci, co).describe()}
 
 
+def labelled_queries():
+    """The 33 labelled queries of ``tests/test_rag_eval.py``, read from its
+    source (that test module imports the reference package, which this
+    script must not)."""
+    import ast
+
+    tree = ast.parse((ROOT / "tests" / "test_rag_eval.py").read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "LABELED_QUERIES")
+    return ast.literal_eval(node.value)
+
+
+def check_rag_topk(torch, seed: int = 4) -> dict:
+    """The vector store's device route (one ``torch.matmul`` + ``torch.topk``
+    on the card) against numpy's matvec + ``argsort`` on the same matrix:
+    32,768 x 8,192 f32 (1 GiB), the built-in KB's embedded rows plus unit
+    rows from ``default_rng(seed)``; the 33 labelled queries.  Indices must
+    be equal where scores do not tie, scores within 1e-5 relative.  Times:
+    median per query of the route as a caller sees it (upload of the query,
+    matmul, topk, results back), of the device work alone (CUDA events), and
+    of the host route on the same matrix."""
+    import numpy as np
+
+    from braintpu_torch.rag import (HashedNgramEmbedder, KBDocument, VectorStore,
+                                    build_vector_store, builtin_knowledge_base)
+
+    docs = builtin_knowledge_base()
+    texts = [d.embed_text for d in docs]
+    emb = HashedNgramEmbedder().fit_idf(texts)
+    rows, dim, k = 32768, emb.dim, 5
+    matrix = np.empty((rows, dim), np.float32)
+    matrix[:len(docs)] = emb.embed(texts)
+    rnd = np.random.default_rng(seed).standard_normal((rows - len(docs), dim), dtype=np.float32)
+    rnd /= np.linalg.norm(rnd, axis=1, keepdims=True)
+    matrix[len(docs):] = rnd
+    del rnd
+    pad = [KBDocument(f"random row {i}", "", "", "seeded", "") for i in range(len(docs), rows)]
+    store = VectorStore(docs + pad, matrix, emb)  # device None: the card
+    if store.route != "device":
+        raise AssertionError(f"a {rows}-row store took the {store.route} route")
+    t0 = time.perf_counter()
+    dev = store._device_copy()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if dev.device.type != "cuda":
+        raise AssertionError(f"the store's matrix went to {dev.device}, not the card")
+    small = build_vector_store(docs)
+    queries = [emb.embed([q])[0] for q, _, _ in labelled_queries()]
+    worst, reordered_ties, same_titles = 0.0, 0, 0
+    for (text, _, _), q in zip(labelled_queries(), queries):
+        vals, idx = store.topk(q, k)
+        scores = matrix @ q
+        want = np.argsort(-scores)[:k]
+        rel = float((np.abs(vals - scores[want]) / np.abs(scores[want])).max())
+        worst = max(worst, rel)
+        if not rel <= 1e-5:
+            raise AssertionError(f"device top-k scores off by {rel} (rel) for {text!r}")
+        if not np.array_equal(idx, want):
+            # a difference is allowed only between rows whose scores tie
+            if not np.allclose(scores[idx], scores[want], rtol=1e-6, atol=0):
+                raise AssertionError(f"device top-k {idx} != numpy {want} for {text!r}")
+            reordered_ties += 1
+        same_titles += [d.title for d, _ in store.retrieve(text, 2)] == \
+            [d.title for d, _ in small.retrieve(text, 2)]
+    route_s, device_ms, host_s = [], [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        store.topk(q, k)  # returns numpy: synchronised
+        route_s.append(time.perf_counter() - t0)
+        qd = torch.from_numpy(q).cuda()
+        device_ms.append(cuda_ms(torch, lambda: torch.topk(torch.matmul(dev, qd), k), iters=10))
+    for q in queries[:11]:
+        t0 = time.perf_counter()
+        np.argsort(-(matrix @ q))[:k]
+        host_s.append(time.perf_counter() - t0)
+    nbytes = matrix.nbytes + dim * 4 + k * 12
+    return {"rows": rows, "dim": dim, "matrix_bytes": matrix.nbytes, "k": k,
+            "queries": len(queries), "route": store.route, "upload_s": upload_s,
+            "max_rel_score_err": worst, "tie_reorders": reordered_ties,
+            "top2_titles_as_7_row_store": same_titles,
+            "route_ms_median": statistics.median(route_s) * 1e3,
+            "device_ms_median": statistics.median(device_ms),
+            "host_numpy_ms_median": statistics.median(host_s) * 1e3,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def http(url: str, data: Optional[bytes] = None, headers=None, method=None, timeout=120):
+    """(status code, body, headers, seconds) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers=headers or {}, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers), time.perf_counter() - t0
+
+
+def multipart(fields: dict, files: dict):
+    """A multipart/form-data body and its content type."""
+    import uuid
+
+    boundary = f"----braintpu-smoke-{uuid.uuid4().hex}"
+    parts = [f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n{v}\r\n".encode()
+             for k, v in fields.items()]
+    for name, data in files.items():
+        parts.append(f"--{boundary}\r\nContent-Disposition: form-data; name=\"{name}\"; "
+                     f"filename=\"{name}.nii.gz\"\r\nContent-Type: application/octet-stream"
+                     "\r\n\r\n".encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+def case_files(case_dir: Path, with_seg: bool = True) -> dict:
+    mods = ("t1", "t1ce", "t2", "flair") + (("seg",) if with_seg else ())
+    return {m: (case_dir / f"{case_dir.name}_{m}.nii.gz").read_bytes() for m in mods}
+
+
+def submit(url: str, case_dir: Path, as_json: bool = False) -> str:
+    """POST /api/analyze: multipart with the ground truth, or JSON with
+    RFC-2045-wrapped base64 (newlines every 76 characters)."""
+    import base64
+
+    if as_json:
+        files = {m: base64.encodebytes(v).decode() for m, v in case_files(case_dir).items()}
+        body = json.dumps({"case_id": case_dir.name, "files": files}).encode()
+        ctype = "application/json"
+    else:
+        body, ctype = multipart({"case_id": case_dir.name}, case_files(case_dir))
+    code, resp, _, _ = http(url + "/api/analyze", body, {"Content-Type": ctype}, "POST")
+    if code != 200:
+        raise AssertionError(f"analyze {case_dir.name}: HTTP {code} {resp[:300]!r}")
+    return json.loads(resp)["job_id"]
+
+
+def wait_jobs(url: str, jobs: dict, t_submit: dict, timeout_s: float = 600.0,
+              latencies: Optional[list] = None) -> dict:
+    """Poll /api/status every 50 ms until every job is done or in error;
+    returns {job: (status, seconds from its submit to the poll that saw it
+    end)}.  Every job is waited for, so no job thread is inside a kernel
+    when the server shuts down."""
+    ended, deadline = {}, time.perf_counter() + timeout_s
+    while len(ended) < len(jobs) and time.perf_counter() < deadline:
+        for job in jobs:
+            if job in ended:
+                continue
+            code, resp, _, s = http(url + f"/api/status/{job}")
+            if latencies is not None:
+                latencies.append(s)
+            status = json.loads(resp) if code == 200 else {"status": f"HTTP {code}"}
+            if status["status"] in ("done", "error") or code != 200:
+                ended[job] = (status, time.perf_counter() - t_submit[job])
+        time.sleep(0.05)
+    if len(ended) < len(jobs):
+        raise AssertionError(f"jobs still running after {timeout_s} s: {set(jobs) - set(ended)}")
+    return ended
+
+
+def stage_spans(events) -> dict:
+    """Seconds of each stage from its first 'start' to its 'ok' in a journal."""
+    t = {}
+    for e in events:
+        t.setdefault(e["stage"], {}).setdefault(e["status"], e["t"])
+    return {s: v["ok"] - v["start"] for s, v in t.items() if "ok" in v and "start" in v}
+
+
 #: device-time categories of the profile, by kernel-name fragment (first match)
 PROFILE_GROUPS = (
     ("conv_stage", ("conv_stage_kernel",)),
@@ -379,6 +560,9 @@ def main() -> int:
                     help="write the profiled case's Chrome trace to DIR/trace.json.gz")
     args = ap.parse_args()
     t_start = time.perf_counter()
+    # the chat phases take the assistant's offline path: no LLM key, so no
+    # request leaves the machine
+    os.environ["GEMINI_API_KEY"] = ""
     import numpy as np
     import torch
 
@@ -418,6 +602,7 @@ def main() -> int:
     from braintpu_torch.pipeline import Pipeline, PipelineConfig
     from braintpu_torch.pre.preprocess import preprocess_case
     from braintpu_torch.report import SlotValidator
+    from braintpu_torch.serve import make_server
     from braintpu_torch.tools import probe
     from braintpu_torch.train.synthetic import write_synth_case
 
@@ -565,6 +750,10 @@ def main() -> int:
                             "python_s_min": min(secs["python"])})
             print(json.dumps({"decode": dec}), flush=True)
 
+        with phase("4d RAG top-k on the card"):
+            print(json.dumps({"rag_topk": check_rag_topk(torch)}), flush=True)
+            torch.cuda.empty_cache()
+
         # model 1 alone: the first slice's main path, now also through upconv2x
         engine_args = build_parser().parse_args(
             ["segment", "--input", str(anchor), "--output", str(tmp / "out"),
@@ -590,6 +779,14 @@ def main() -> int:
         def model1_launches(bucket):
             return {"conv3d_tap_merged": 16 * len(tap_layers(bucket)),
                     "upconv2x": 16 * len(up_layers(MODEL1_BN, bucket))}
+
+        def two_model_launches(bucket):
+            """One fullconv case of the two-model engine: 2 folds x 8 mirrors
+            through each model's kernel layers."""
+            want = dict(model1_launches(bucket))
+            want["conv_stage"] = 16 * len(stage_layers(bucket))
+            want["upconv2x"] += 16 * len(up_layers(MODEL2_GN_LARGE, bucket))
+            return want
 
         with phase("5 parity anchor (model 1 main path)"):
             reset_counts()
@@ -670,12 +867,8 @@ def main() -> int:
             violations = SlotValidator().report_violations(
                 (fe / "radiology_report.txt").read_text())
             pdf_ok = (fe / "radiology_report.pdf").read_bytes()[:4] == b"%PDF"
-            t = {}
-            for e in events:
-                t.setdefault(e["stage"], {})[e["status"]] = min(
-                    e["t"], t.get(e["stage"], {}).get(e["status"], e["t"]))
+            spans = stage_spans(events)
             seg_ok = next(e for e in events if e["stage"] == "segmenting" and e["status"] == "ok")
-            span = lambda stage: t[stage]["ok"] - t[stage]["start"]
             print(json.dumps({"pipeline": {
                 "case": "BraTS-SYN-00200-000 240x240x155",
                 "models": "model1 (2 trained folds), 8-flip TTA, fullconv",
@@ -683,9 +876,9 @@ def main() -> int:
                 "stage_seconds": {
                     "decode": seg_ok["detail"]["decode_s"],
                     "segment": seg_ok["detail"]["seconds"],
-                    "convert": span("converting"), "evaluate": span("evaluating"),
-                    "features": span("extracting"), "report": span("generating"),
-                    "pdf": span("exporting"),
+                    "convert": spans["converting"], "evaluate": spans["evaluating"],
+                    "features": spans["extracting"], "report": spans["generating"],
+                    "pdf": spans["exporting"],
                     "case_total": result.summary["pipeline_duration_seconds"]},
                 "note": "per-stage seconds are host wall time from the events journal "
                         "(information only)"}}), flush=True)
@@ -829,10 +1022,8 @@ def main() -> int:
                 raise AssertionError("the segmentation path launched int8_matmul")
             if tuple(info2["bucket_shape"]) != tuple(main_bucket):
                 raise AssertionError(f"bucket {info2['bucket_shape']} != {main_bucket}")
-            want = dict(model1_launches(main_bucket))
-            want["conv_stage"] = 16 * len(stage_layers(main_bucket))
-            want["upconv2x"] += 16 * len(up_layers(MODEL2_GN_LARGE, main_bucket))
-            expect_counts(main_launches, want, f"two models at bucket {info2['bucket_shape']}")
+            expect_counts(main_launches, two_model_launches(main_bucket),
+                          f"two models at bucket {info2['bucket_shape']}")
             want_route = "native" if native.native_available() else "python"
             if info2["decode_route"] != want_route:
                 raise AssertionError(f"decode route {info2['decode_route']} != {want_route}")
@@ -974,6 +1165,194 @@ def main() -> int:
         with phase("9 profile of one two-model case"):
             profile_case(torch, lambda: segment(engine2, brats_size),
                          Path(args.trace) if args.trace else None, what="fullconv")
+        del engine2
+        torch.cuda.empty_cache()
+
+        # cli serve's engine flags: phase 8's weights, fullconv (the default), TTA
+        serve_flags = ["--checkpoints", str(root), "--models", "model1,model2", "--folds", "2",
+                       "--random-weights"]
+        with phase("10 serve (in process)"):
+            serve_args = build_parser().parse_args(
+                ["serve", "--host", "127.0.0.1", "--port", "0", "--root", str(tmp / "serve")]
+                + serve_flags)
+            engine_sv = load_engine(serve_args)
+            t0 = time.perf_counter()
+            server = make_server(engine_sv, Path(serve_args.root), host=serve_args.host,
+                                 port=serve_args.port)
+            bind_s = time.perf_counter() - t0
+            threading.Thread(target=server.serve_forever, daemon=True, name="smoke-serve").start()
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            jobs, t_submit, ended = {}, {}, {}
+            try:
+                warmup_s = engine_sv.warmup()
+                torch.cuda.synchronize()
+                reset_counts()
+                status_lat = []
+                # one job alone: seed 200 at 240x240x155 as multipart, with its _seg
+                t0 = time.perf_counter()
+                jobs["alone"] = submit(url, flagship)
+                t_submit[jobs["alone"]] = t0
+                ended.update(wait_jobs(url, [jobs["alone"]], t_submit, latencies=status_lat))
+                # two jobs in flight at once: seeds 50 and 51 as JSON, wrapped base64
+                torch.cuda.reset_peak_memory_stats()
+                t_pair = time.perf_counter()
+                for name, case_dir in (("seed50", brats_size), ("seed51", third)):
+                    t0 = time.perf_counter()
+                    jobs[name] = submit(url, case_dir, as_json=True)
+                    t_submit[jobs[name]] = t0
+                ended.update(wait_jobs(url, [jobs["seed50"], jobs["seed51"]], t_submit,
+                                       latencies=status_lat))
+                pair_wall = time.perf_counter() - t_pair
+                pair_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.synchronize()
+                served_launches = counts()
+                int8_served = int8_matmul.launches
+                j200 = jobs["alone"]
+                lat = {"status": status_lat, "report": [], "pdf": [], "metrics": [], "chat": []}
+                bodies = {}
+                for _ in range(5):
+                    for what, path in (("report", f"/api/report/{j200}"),
+                                       ("pdf", f"/api/report/{j200}/pdf"),
+                                       ("metrics", f"/api/metrics/{j200}")):
+                        code, bodies[what], _, s = http(url + path)
+                        lat[what].append(s)
+                        if code != 200:
+                            raise AssertionError(f"GET {path}: HTTP {code}")
+                chats = {}
+                for label, question in (("clinical", "What treatment should the patient get?"),
+                                        ("educational", "What is peritumoral edema?")):
+                    for _ in range(3):
+                        code, body, _, s = http(url + f"/api/chat/{j200}", json.dumps(
+                            {"question": question}).encode(), {"Content-Type": "application/json"},
+                            "POST")
+                        lat["chat"].append(s)
+                    chats[label] = (code, json.loads(body))
+            finally:
+                # every submitted job reaches done or error before the shutdown
+                running = [j for j in jobs.values() if j not in ended]
+                if running:
+                    wait_jobs(url, running, {j: time.perf_counter() for j in running})
+                server.shutdown()
+                server.server_close()
+            from braintpu_torch.rag import REFUSAL_DATA
+            from braintpu_torch.serve import CLINICAL_REFUSAL
+
+            bad = {n: ended[j][0] for n, j in jobs.items() if ended[j][0]["status"] != "done"}
+            if bad:
+                raise AssertionError(f"served jobs not done: {bad}")
+            metrics = json.loads(bodies["metrics"])
+            if b"MRI BRAIN WITH CONTRAST" not in bodies["report"] or bodies["pdf"][:4] != b"%PDF" \
+                    or not np.isfinite(metrics["mean_dice"]):
+                raise AssertionError("served report, PDF or metrics malformed")
+            if chats["clinical"] != (400, {"detail": CLINICAL_REFUSAL}) or \
+                    chats["educational"] != (200, {"answer": REFUSAL_DATA}):
+                raise AssertionError(f"chat answers: {chats}")
+            _, bucket51 = bucket_of(third)
+            want = {}
+            for b in (buckets["flagship_geometry"], main_bucket, bucket51):
+                for k, v in two_model_launches(b).items():
+                    want[k] = want.get(k, 0) + v
+            expect_counts(served_launches, want, "three served jobs (after warm-up)")
+            if int8_served:
+                raise AssertionError("the serving path launched int8_matmul")
+            journals = {n: [json.loads(ln) for ln in server.app.jobs.artifact(
+                j, "events.jsonl").read_text().splitlines()] for n, j in jobs.items()}
+            seg_span = {n: (next(e["t"] for e in ev if e["stage"] == "segmenting"),
+                            next(e["t"] for e in ev if e["stage"] == "segmenting"
+                                 and e["status"] == "ok")) for n, ev in journals.items()}
+            overlap = min(seg_span["seed50"][1], seg_span["seed51"][1]) - \
+                max(seg_span["seed50"][0], seg_span["seed51"][0])
+            # the same case through Pipeline.run_case on the same engine
+            direct = Pipeline(engine_sv, PipelineConfig(output_root=tmp / "serve_direct")).run_case(
+                flagship)
+            torch.cuda.synchronize()
+            cid = find_cases(flagship)[0].case_id
+            served = nifti.load(server.app.jobs.artifact(j200, f"{cid}_brats.nii.gz")).get_fdata(
+                dtype="float32")
+            direct_labels = nifti.load(direct.output_folder / f"{cid}_brats.nii.gz").get_fdata(
+                dtype="float32")
+            agreement = float((served == direct_labels).mean())
+            med = lambda xs: statistics.median(xs) * 1e3
+            print(json.dumps({"serve": {
+                "engine": "model1 (2 trained folds) + model2 (init_params seeds 1000, 1001), "
+                          "fullconv, 8-flip TTA", "bind_s": bind_s, "warmup_s": warmup_s,
+                "jobs": {n: {"job": j, "submit_to_done_s": ended[j][1],
+                             "stage_seconds": stage_spans(journals[n])}
+                         for n, j in jobs.items()},
+                "alone_s": ended[j200][1], "pair_wall_s": pair_wall,
+                "pair_segment_overlap_s": overlap,
+                "pair_max_memory_allocated_bytes": pair_peak,
+                "request_ms_median": {k: med(v) for k, v in lat.items()},
+                "requests": {k: len(v) for k, v in lat.items()},
+                "launches": served_launches, "launches_want": want,
+                "served_vs_direct_label_agreement": agreement,
+                "mean_dice_seed200": metrics["mean_dice"],
+                "note": "Dice is information only: model 2's weights are random"}}), flush=True)
+            if not direct.succeeded or agreement < 0.9999:
+                raise AssertionError(f"served labels agree with a direct run on {agreement} < 0.9999")
+            del engine_sv, direct
+            torch.cuda.empty_cache()
+
+        with phase("10b cli serve as a process"):
+            cmd = [sys.executable, "-u", "-m", "braintpu_torch.cli", "serve", "--host", "127.0.0.1",
+                   "--port", "0", "--root", str(tmp / "serve_proc")] + serve_flags
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, env={**os.environ, "GEMINI_API_KEY": ""})
+            lines, log = queue.Queue(), []
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout] + [lines.put(None)],
+                             daemon=True).start()
+
+            def expect_line(prefix, timeout_s):
+                deadline = time.perf_counter() + timeout_s
+                while time.perf_counter() < deadline:
+                    try:
+                        ln = lines.get(timeout=1.0)
+                    except queue.Empty:
+                        continue
+                    if ln is None:
+                        raise AssertionError(f"cli serve exited before {prefix!r}: {log[-20:]}")
+                    log.append(ln.rstrip())
+                    if ln.startswith(prefix):
+                        return ln, time.perf_counter() - t0
+                raise AssertionError(f"no {prefix!r} from cli serve in {timeout_s} s: {log[-20:]}")
+
+            try:
+                ln, bound_s = expect_line("serving on ", 300)
+                purl = f"http://127.0.0.1:{int(ln.split()[2].rsplit(':', 1)[1])}"
+                warm_line, warm_s = expect_line("engine warmup done", 600)
+                t_sub = {}
+                t1 = time.perf_counter()
+                job = submit(purl, flagship)
+                t_sub[job] = t1
+                (status, done_s), = wait_jobs(purl, [job], t_sub).values()
+                if status["status"] != "done":
+                    raise AssertionError(f"cli serve job: {status}")
+                proc.send_signal(signal.SIGINT)
+                rc = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            while not lines.empty():
+                ln = lines.get()
+                if ln is not None:
+                    log.append(ln.rstrip())
+            print(json.dumps({"cli_serve": {"bind_s_from_start": bound_s,
+                                            "warmup_done_s_from_start": warm_s,
+                                            "warmup_line": warm_line.strip(),
+                                            "job_submit_to_done_s": done_s, "exit_code": rc,
+                                            "output": log[-8:]}}), flush=True)
+            if rc != 0:
+                raise AssertionError(f"cli serve exited with {rc} on SIGINT")
+
+        with phase("10c check-env"):
+            out = subprocess.run([sys.executable, "-m", "braintpu_torch.cli", "check-env",
+                                  "--checkpoints", str(CKPTS)], cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300)
+            print(out.stdout + out.stderr, flush=True)
+            if out.returncode != 0:
+                raise AssertionError(f"check-env exited with {out.returncode} on the card")
 
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
@@ -996,6 +1375,7 @@ def main() -> int:
             "checked": True, "launches": main_launches[name],
             "launches_on_main_path": main_launches[name],
             "launches_sliding": sliding_counts[name],
+            "launches_serving": served_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in results[name]),
             "shape": h["shape"], "ms": h["kernel_ms"], "device_ms": h.get("device_ms"),
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
@@ -1006,7 +1386,7 @@ def main() -> int:
         "name": "int8_matmul", "route": "cuda", "source": "braintpu_torch/csrc/int8_matmul.cu",
         "replaces": "braintpu/ops/int8_probe.py:59",
         "replaces_function": "braintpu/ops/int8_probe.py::int8_matmul", "checked": True,
-        "launches": int8_launches, "launches_on_main_path": 0,
+        "launches": int8_launches, "launches_on_main_path": 0, "launches_serving": int8_served,
         "launches_path": "python -m braintpu_torch.tools.probe int8",
         "max_abs_err": max(r["max_abs_err"] for r in int8_records),
         "shape": cube["shape"], "ms": cube["kernel_ms"], "device_ms": cube["device_ms"],

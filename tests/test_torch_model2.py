@@ -319,7 +319,7 @@ def test_model2_trained_fold_bf16_label_agreement():
     tree = _trained("model2", 0)
     mods, _ = synth_case_arrays(200, shape=(40, 40, 36))
     data = np.stack([mods[m] for m in ("t1", "t1ce", "t2", "flair")])
-    x = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32).data.movedim(0, -1)[None]
+    x = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32, device="cpu").data.movedim(0, -1)[None]
     ref = np.asarray(jax_unet.apply_unet(tree, jnp.asarray(x.numpy()), jcfg))
     got = unet3d.apply_unet(params_from_jax(tree, tcfg), x, tcfg)
     lab = lambda z: np.asarray(jax_sw.region_probs_to_labels(jax.nn.sigmoid(jnp.asarray(z))))

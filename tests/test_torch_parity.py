@@ -225,7 +225,7 @@ def test_unet_forward_bf16_label_agreement():
     tree = _trained_fold(0)
     mods, _ = synth_case_arrays(200, shape=(40, 40, 36))
     data = np.stack([mods[m] for m in ("t1", "t1ce", "t2", "flair")])
-    x = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32).data.movedim(0, -1)[None]
+    x = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32, device="cpu").data.movedim(0, -1)[None]
     ref = np.asarray(jax_unet.apply_unet(jax_unet.fold_batchnorm(tree, jcfg),
                                          jnp.asarray(x.numpy()), jcfg, folded=True))
     got = unet3d.apply_unet(unet3d.fold_batchnorm(params_from_jax(tree, tcfg), tcfg), x, tcfg,
@@ -296,7 +296,7 @@ def _brain_stack(seed, shape=(4, 40, 44, 36)):
 def test_preprocess_matches_reference(seed):
     data = _brain_stack(seed)
     ref = jax_preprocess(data, patch_size=(32, 32, 32), pad_multiple=32)
-    got = preprocess_case(data, patch_size=(32, 32, 32), pad_multiple=32)
+    got = preprocess_case(data, patch_size=(32, 32, 32), pad_multiple=32, device="cpu")
     fields = lambda c: (c.original_shape, c.lo, c.hi)
     assert fields(got.crop) == fields(ref.crop) and got.undo_slices == ref.undo_slices
     np.testing.assert_allclose(got.data.numpy(), np.asarray(ref.data), rtol=1e-5, atol=1e-5)

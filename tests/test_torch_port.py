@@ -60,7 +60,10 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     assert out.stdout.strip() == "[]"
     assert len(mods) >= 20  # every subpackage and module was imported
     for m in ("braintpu_torch.native", "braintpu_torch.infer.sliding_window",
-              "braintpu_torch.infer.gaussian"):
+              "braintpu_torch.infer.gaussian", "braintpu_torch.serve.api",
+              "braintpu_torch.serve.jobs", "braintpu_torch.rag.store",
+              "braintpu_torch.rag.assistant", "braintpu_torch.utils.config",
+              "braintpu_torch.utils.envcheck"):
         assert m in mods
 
 

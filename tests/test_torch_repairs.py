@@ -5,7 +5,9 @@
 * stored f32 conv kernels are used at the compute dtype (they used to reach
   the bf16 kernel as f32 and raise, or convolve unrounded on the CPU);
 * the seg head rounds its input and weights to the compute dtype;
-* a model named twice in ``--models`` draws the reference's random folds.
+* a model named twice in ``--models`` draws the reference's random folds;
+* C6: ``preprocess_case`` runs on the card unless asked for the CPU, and
+  raises where there is no card (it used to default to the CPU).
 """
 
 import jax
@@ -126,3 +128,19 @@ def test_repeated_model_name_draws_the_reference_folds(tmp_path, capsys):
                                          want.fold_params[0]["encoder"]):
             for g, w in zip(got_stage, want_stage):
                 assert torch.equal(g["w"], w["w"]) and torch.equal(g["b"], w["b"])
+
+
+def test_preprocess_case_defaults_to_the_card(monkeypatch):
+    from braintpu.pre.preprocess import preprocess_case as jax_preprocess_case
+    from braintpu_torch.pre.preprocess import preprocess_case
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.random.default_rng(6).standard_normal((4, 12, 10, 9)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_case(data, patch_size=(8, 8, 8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_case(data, patch_size=(8, 8, 8), device="cuda")
+    got = preprocess_case(data, patch_size=(8, 8, 8), device="cpu")
+    assert got.data.device.type == "cpu"
+    ref = jax_preprocess_case(data, patch_size=(8, 8, 8))
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(ref.data), rtol=1e-6, atol=1e-6)

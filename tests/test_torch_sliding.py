@@ -194,7 +194,7 @@ def test_sliding_window_predict_bf16_trained_fold_label_agreement():
     jp, tp, folded = _both_params(jcfg, tcfg, [tree])
     mods, _ = synth_case_arrays(200, shape=(56, 52, 44))
     data = np.stack([mods[m] for m in ("t1", "t1ce", "t2", "flair")])
-    vol = preprocess_case(data, patch_size=(32,) * 3).data
+    vol = preprocess_case(data, patch_size=(32,) * 3, device="cpu").data
     assert len(gaussian.patch_grid(vol.shape[1:], (32, 32, 32))) == 2 * 2 * 1
     ref = np.asarray(jax_sw.predict_probs(jp, jnp.asarray(vol.numpy()), jcfg, tta=False,
                                           folded=folded))
