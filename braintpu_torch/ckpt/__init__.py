@@ -1,1 +1,2 @@
-"""Checkpoint loading: the flat-keyed npz trees of the reference package."""
+"""Checkpoints: the reference's flat-keyed npz trees (read and written),
+nnU-Net ``.model`` conversion and results-tree discovery."""

@@ -18,9 +18,14 @@
     python -m braintpu_torch.cli rag --question "What is midline shift?" [--report R]
     python -m braintpu_torch.cli build-kb --output kb.npz [--knowledge-dir DIR]
     python -m braintpu_torch.cli check-env [--checkpoints DIR]
+    python -m braintpu_torch.cli train --model model1 --data CASES --checkpoint-dir CK
+    python -m braintpu_torch.cli convert-checkpoint --input fold_0/model_final_checkpoint.model \
+        --output ckpts/model1/fold_0.npz --config model1
+    python -m braintpu_torch.cli convert-checkpoint --input nnUNet_results --output ckpts
 
 The subcommands and flags follow ``braintpu/cli.py`` for what the port has
-(model1 and model2, npz checkpoints, ``--random-weights``, ``--mode
+(model1 and model2, checkpoints as npz folds, nnU-Net ``.model`` files or a
+raw nnU-Net results tree, ``--random-weights``, ``--mode
 {sliding,fullconv}`` with fullconv as the default for these models, as the
 reference's ``load_engine`` chooses, ``--ensemble {softmax,label}``), plus
 ``--device`` on the commands that build an engine or a vector store: the
@@ -45,7 +50,12 @@ __all__ = ["build_parser", "load_engine", "main"]
 def load_engine(args):
     """Build an InferenceEngine from ``--checkpoints``/``--models``/``--folds``.
 
-    A fold whose ``<checkpoints>/<model>/fold_<f>.npz`` is missing raises,
+    Each fold is read from the first of the reference's three sources that
+    holds it: ``<checkpoints>/<model>/fold_<f>.npz``, then
+    ``<checkpoints>/<model>/fold_<f>/model_final_checkpoint.model`` (an
+    nnU-Net checkpoint, converted), then a raw nnU-Net results tree under
+    ``<checkpoints>`` (discovered once, at the first fold that needs it).
+    A fold found in none of them raises,
     unless ``--random-weights`` is given: then it gets ``init_params(cfg,
     selected.index(name) * 1000 + f)``, as in the reference (a name listed
     twice draws the same folds twice).  The label convention is
@@ -55,6 +65,7 @@ def load_engine(args):
     axial model), while ``InferenceEngine`` itself defaults to sliding.
     Prints, per model, which folds were loaded and which were drawn.
     """
+    from .ckpt.convert import convert_torch_checkpoint
     from .ckpt.npz import load_pytree_npz, params_from_jax
     from .infer.engine import InferenceEngine, ModelBundle
     from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
@@ -64,15 +75,42 @@ def load_engine(args):
     unknown = [n for n in selected if n not in configs]
     if unknown:
         raise SystemExit(f"unknown model(s) {unknown}; choose from {sorted(configs)}")
+    nnunet_tree = None  # a raw nnU-Net results tree, discovered at first need
+
+    def nnunet_fold(name: str, f: int):
+        nonlocal nnunet_tree
+        if nnunet_tree is None:
+            from .ckpt.discover import discover_nnunet_tree
+
+            nnunet_tree = discover_nnunet_tree(args.checkpoints)
+        entry = nnunet_tree.get(name)
+        return entry.folds.get(f) if entry else None
+
+    def read_fold(name: str, f: int, cfg):
+        """The fold's reference-layout tree from the first source holding it."""
+        if not args.checkpoints:
+            return None
+        root = Path(args.checkpoints)
+        npz = root / name / f"fold_{f}.npz"
+        if npz.exists():
+            return load_pytree_npz(npz)
+        model = root / name / f"fold_{f}" / "model_final_checkpoint.model"
+        if not model.exists():
+            model = nnunet_fold(name, f)
+        if model is None:
+            return None
+        print(f"# {name}/fold_{f}: converting {model}", flush=True)
+        return convert_torch_checkpoint(model, cfg)
+
     bundles = []
     for name in selected:
         cfg = configs[name]
         seed0 = selected.index(name) * 1000  # a repeated name draws the same folds
         fold_params, loaded, drawn = [], [], []
         for f in range(args.folds):
-            npz = Path(args.checkpoints) / name / f"fold_{f}.npz" if args.checkpoints else None
-            if npz is not None and npz.exists():
-                fold_params.append(params_from_jax(load_pytree_npz(npz), cfg))
+            tree = read_fold(name, f, cfg)
+            if tree is not None:
+                fold_params.append(params_from_jax(tree, cfg))
                 loaded.append(f)
             elif args.random_weights:
                 fold_params.append(init_params(cfg, seed0 + f))
@@ -336,9 +374,75 @@ def cmd_check_env(args) -> int:
     return 0 if all(c["ok"] for c in checks) else 1
 
 
+def cmd_convert_checkpoint(args) -> int:
+    from .ckpt.convert import convert_torch_checkpoint
+    from .ckpt.discover import convert_nnunet_tree
+    from .ckpt.npz import save_pytree_npz
+    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE
+
+    if Path(args.input).is_dir():
+        # a whole nnU-Net results tree -> <output>/<model>/fold_<n>.npz
+        written = convert_nnunet_tree(
+            args.input, args.output, configs={"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE},
+            folds=[int(f) for f in args.tree_folds.split(",")] if args.tree_folds else None)
+        for p in written:
+            print(f"  {p}")
+        print(f"converted {len(written)} fold checkpoint(s) from {args.input} → {args.output}")
+        return 0
+    cfg = MODEL1_BN if args.config == "model1" else MODEL2_GN_LARGE
+    save_pytree_npz(convert_torch_checkpoint(args.input, cfg), args.output)
+    print(f"converted {args.input} → {args.output} ({args.config})")
+    return 0
+
+
+def cmd_train(args) -> int:
+    """``train``: the reference's ``cmd_train`` on the port's trainer (the
+    card unless ``--device cpu``).  Resumable: rerun with more ``--steps``."""
+    import dataclasses
+
+    import torch
+
+    from .io.brats import find_cases
+    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
+    from .train.augment import AugmentConfig
+    from .train.data import PatchSampler
+    from .train.trainer import TrainConfig, create_train_state, fit
+    from .utils.device import resolve_device
+
+    if args.model == "axial":
+        raise SystemExit("--model axial: the axial U-Net is not ported yet (ROADMAP A4)")
+    if args.dp_devices > 1:
+        raise SystemExit("--dp-devices > 1: data-parallel training is not ported yet (ROADMAP A3)")
+    cfg = {"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE}[args.model]
+    if args.patch:
+        cfg = dataclasses.replace(cfg, patch_size=tuple(int(v) for v in args.patch.split(",")))
+    cases = [c for c in find_cases(args.data) if c.seg_path is not None]
+    if not cases:
+        raise SystemExit(f"no cases with _seg ground truth under {args.data}")
+    device = resolve_device(args.device)
+    print(f"training {args.model} on {len(cases)} cases, patch {cfg.patch_size}, device {device}")
+    sampler = PatchSampler(cases, patch_size=cfg.patch_size, batch_size=args.batch_size,
+                           seed=args.seed, augment=AugmentConfig() if args.augment else None)
+    tc = TrainConfig(base_lr=args.lr, max_steps=args.steps)
+    state = create_train_state(init_params(cfg, args.seed), tc, device=device)
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)  # dropout draws
+
+    def log(m):
+        step = int(m["step"])
+        if step % args.log_every == 0 or step == 1:
+            print(f"step {step:>7}  loss {m['loss']:.4f}  |g| {m['grad_norm']:.3f}", flush=True)
+
+    state = fit(state, iter(sampler), cfg, tc, num_steps=args.steps,
+                checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+                generator=generator, on_metrics=log)
+    print(f"done at step {int(state.step)}; checkpoints in {args.checkpoint_dir}")
+    return 0
+
+
 def _add_engine_args(p, convention_default=None) -> None:
     """The flags that build an engine (see :func:`load_engine`)."""
-    p.add_argument("--checkpoints", help="checkpoint root: model{1,2}/fold_N.npz layout")
+    p.add_argument("--checkpoints", help="checkpoint root: model{1,2}/fold_N.npz, "
+                   "model{1,2}/fold_N/model_final_checkpoint.model, or an nnU-Net results tree")
     p.add_argument("--models", default="model1,model2", help="comma list: model1,model2")
     p.add_argument("--folds", type=int, default=5)
     if convention_default:
@@ -449,6 +553,34 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("check-env", help="environment preflight checks")
     p.add_argument("--checkpoints")
     p.set_defaults(fn=cmd_check_env)
+
+    p = sub.add_parser("train", help="train a U-Net on BraTS cases (checkpointed, resumable)")
+    p.add_argument("--data", required=True, help="folder of BraTS cases with _seg ground truth")
+    p.add_argument("--model", choices=["model1", "model2", "axial"], default="model1")
+    p.add_argument("--steps", type=int, default=250000)
+    p.add_argument("--batch-size", type=int, default=2)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--patch", help="override patch size, e.g. 128,128,128")
+    p.add_argument("--augment", action="store_true", help="nnU-Net-style data augmentation")
+    p.add_argument("--checkpoint-dir", default="train_ckpts")
+    p.add_argument("--checkpoint-every", type=int, default=250)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dp-devices", type=int, default=0,
+                   help="data-parallel training over this many devices (not ported yet)")
+    p.add_argument("--device", default=None, help="torch device; default: the card (cuda)")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("convert-checkpoint",
+                       help="torch nnU-Net .model → .npz (file, or a whole nnUNet_results tree "
+                            "when --input is a directory)")
+    p.add_argument("--input", required=True, help=".model file OR nnU-Net results-tree root")
+    p.add_argument("--output", required=True,
+                   help=".npz path (file mode) OR checkpoint root dir (tree mode)")
+    p.add_argument("--config", choices=["model1", "model2"], default="model1",
+                   help="architecture of a single .model file (ignored in tree mode)")
+    p.add_argument("--tree-folds", help="tree mode: comma-separated fold subset, e.g. 0,1,2,3,4")
+    p.set_defaults(fn=cmd_convert_checkpoint)
 
     p = sub.add_parser("rename", help="BraTS-2025 → 2021 filename conversion")
     p.add_argument("folder")

@@ -67,21 +67,28 @@ class ModelBundle:
 
     @classmethod
     def from_folds(
-        cls, cfg: UNetConfig, fold_params: Sequence[Dict[str, Any]], name: str = ""
+        cls,
+        cfg: UNetConfig,
+        fold_params: Sequence[Dict[str, Any]],
+        fold_bn: bool = True,
+        name: str = "",
     ) -> "ModelBundle":
         """Inference-ready copies of each fold's parameters.
 
         A BatchNorm model has its norm folded into the convs (in f32) and is
-        marked ``folded``.  A GroupNorm / InstanceNorm model has nothing to
-        fold: its parameters stay as loaded (``folded`` False).  Either way
-        the conv, up-conv and seg kernels are stored at the compute dtype --
-        one rounding from the loaded leaf, the same bits as the reference's
-        use-site cast -- and biases, scales and shifts in f32.
+        marked ``folded``, unless ``fold_bn`` is False: then its norms stay
+        in the forward (eval BatchNorm with the running statistics), as the
+        reference's ``fold_bn=False``.  A GroupNorm / InstanceNorm model has
+        nothing to fold: its parameters stay as loaded (``folded`` False).
+        Either way the conv, up-conv and seg kernels are stored at the
+        compute dtype -- one rounding from the loaded leaf, the same bits as
+        the reference's use-site cast -- and biases, scales, shifts and
+        statistics in f32.
 
         ``fold_params``: port parameters (``ckpt.npz.params_from_jax`` or
         ``models.unet3d.init_params``) at any float dtype.
         """
-        folded = cfg.norm == "batch"
+        folded = fold_bn and cfg.norm == "batch"
 
         def store(t: torch.Tensor) -> torch.Tensor:
             return t.to(cfg.compute_dtype) if t.dim() >= 5 else t.float()

@@ -46,16 +46,19 @@ def fullconv_predict(
 
     Args:
       fold_params: one parameter dict per fold (on the volume's device).
-      volume: (X, Y, Z, C) preprocessed volume, every spatial axis a
-        multiple of ``2**cfg.num_pool``.
+      volume: (X, Y, Z, C) preprocessed volume, or a (B, X, Y, Z, C) batch
+        of same-bucket volumes, every spatial axis a multiple of
+        ``2**cfg.num_pool``.
       num_mirror: 1 (no TTA) or 8 (full mirror TTA).
       folded: the params have BatchNorm folded into the convs (see
         ``models.unet3d.apply_unet``; False by default, as in the reference).
 
     Returns:
-      (X, Y, Z, K) f32 sigmoid probabilities averaged over folds x mirrors.
+      (X, Y, Z, K) f32 sigmoid probabilities averaged over folds x mirrors,
+      or (B, X, Y, Z, K) for a batch (each case's own, as its single call).
     """
-    x = volume[None]
+    squeeze = volume.dim() == 4
+    x = volume[None] if squeeze else volume
     div = 2**cfg.num_pool
     B, X, Y, Z, _ = x.shape
     if any(s % div for s in (X, Y, Z)):
@@ -74,7 +77,7 @@ def fullconv_predict(
             group += torch.sigmoid(apply_unet(params, batch, cfg, folded=folded))
         probs += _apply_flips(group, axes)
     probs /= len(fold_params) * len(combos)
-    return probs[0]
+    return probs[0] if squeeze else probs
 
 
 def predict_probs_fullconv(

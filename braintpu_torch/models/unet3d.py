@@ -27,6 +27,19 @@ Two inference forwards:
 
 Both forwards send their bf16 2x2x2 up-convs to the Hopper kernel
 ``ops.upconv.upconv2x`` and end in the 1x1x1 seg head (f32 logits).
+
+The **training forward** (``apply_unet(train=True)``, and any forward that
+returns the deep-supervision heads or keeps the norms of an unfolded
+BatchNorm model) follows the reference's ``_block_apply``: conv, then
+channel-wise dropout in ``cfg.dropout_levels``, then the norm (BatchNorm in
+batch-statistics mode with the running-stat update, or eval BatchNorm with
+the running statistics; GroupNorm / InstanceNorm from
+:func:`_spatial_group_stats`), then LeakyReLU.  Its band convs take the
+differentiable ``conv3d_tap_merged`` (no slope: the norm sits between the
+conv and the activation); its other convs ``F.conv3d``; and whenever
+autograd records, its up-convs ``F.conv_transpose3d`` (``upconv2x`` has no
+gradient).  GroupNorm forwards that record gradients never take the
+deferred ``conv_stage`` path.
 """
 
 from __future__ import annotations
@@ -75,12 +88,17 @@ class UNetConfig:
     norm: str = "batch"  # "batch" | "group" | "instance"
     group_norm_groups: int = 8
     norm_eps: float = 1e-5
+    #: BatchNorm running-stat momentum of the training forward
+    bn_momentum: float = 0.1
     negative_slope: float = 0.01
     #: sliding-window patch (``infer.sliding_window``); fullconv ignores it
     patch_size: Tuple[int, int, int] = (128, 128, 128)
     pool_kernel: Tuple[int, int, int] = (2, 2, 2)
     conv_kernel: Tuple[int, int, int] = (3, 3, 3)
     compute_dtype: torch.dtype = torch.bfloat16
+    #: encoder stages whose convs take channel-wise dropout in training
+    dropout_levels: Tuple[int, ...] = (4,)
+    dropout_rate: float = 0.0
 
     @property
     def name(self) -> str:
@@ -400,13 +418,38 @@ def _block(x, block, cfg: UNetConfig, stride) -> torch.Tensor:
     if "mean" in block or "var" in block:
         raise ValueError("BatchNorm block with running statistics: fold it first "
                          "(fold_batchnorm), or call apply_unet with folded=False")
+    return _conv(x, block, stride, cfg, cfg.negative_slope)
+
+
+def _conv(x, block, stride, cfg: UNetConfig, negative_slope: Optional[float]) -> torch.Tensor:
+    """One 3-D conv + bias (+ LeakyReLU) at the compute dtype, dispatched by
+    :func:`choose_impl`: the band to the Hopper kernel (differentiable), the
+    rest to ``F.conv3d``."""
     w, b = block["w"], block["b"]
     impl = choose_impl(tuple(x.shape), tuple(w.shape[:3]), stride, int(w.shape[4]),
                        cfg.compute_dtype)
     if impl == "kernel":
-        return conv3d_tap_merged(x.contiguous(), w.to(cfg.compute_dtype).contiguous(), b.float(),
-                                 cfg.negative_slope)
-    return _conv3d_library(x, w, b, stride, cfg.compute_dtype, cfg.negative_slope)
+        return conv3d_tap_merged(x.to(cfg.compute_dtype).contiguous(),
+                                 w.to(cfg.compute_dtype).contiguous(), b.float(), negative_slope)
+    return _conv3d_library(x, w, b, stride, cfg.compute_dtype, negative_slope)
+
+
+def _records(*tensors) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _upconv_library(x, w, dtype) -> torch.Tensor:
+    """``F.conv_transpose3d`` on NDHWC / (Ci, 2, 2, 2, Co) tensors at ``dtype``
+    (differentiable).  On the CPU a bf16 config computes in f32 from the
+    rounded operands and rounds the result, as the card's bf16 path does."""
+    wt = w.to(dtype).permute(0, 4, 1, 2, 3)
+    xt = x.to(dtype).permute(0, 4, 1, 2, 3)
+    if _low_precision_on_cpu(x, dtype):
+        y = F.conv_transpose3d(xt.float(), wt.float(), stride=tuple(w.shape[1:4]))
+    else:
+        y = F.conv_transpose3d(xt, wt.contiguous(), stride=tuple(w.shape[1:4]))
+    return y.to(dtype).permute(0, 2, 3, 4, 1)
 
 
 def _upconv(x, w, dtype) -> torch.Tensor:
@@ -414,8 +457,12 @@ def _upconv(x, w, dtype) -> torch.Tensor:
 
     A bf16 config sends it to the Hopper kernel ``upconv2x`` (the GEMM with
     the pixel shuffle in its epilogue; on CPU tensors its plain version);
-    anything else takes the plain version at ``dtype``.
+    anything else takes the plain version at ``dtype``.  When autograd
+    records, it takes ``F.conv_transpose3d`` (the kernel has no gradient),
+    as the reference's training forward takes XLA's.
     """
+    if _records(x, w):
+        return _upconv_library(x, w, dtype)
     if (tuple(w.shape[1:4]) == (2, 2, 2) and dtype == torch.bfloat16
             and upconv_supported(tuple(x.shape), int(w.shape[4]))):
         return upconv2x(x.to(dtype).contiguous(), w.to(dtype).contiguous())
@@ -539,32 +586,170 @@ def _apply_unet_deferred(params, x, cfg: UNetConfig) -> torch.Tensor:
     return _seg_head(_materialize(*state, dtype), params["decoder"][-1]["seg"]["w"], dtype)
 
 
+# ---------------------------------------------------------------------------
+# Norm-in-the-forward path (training, deep supervision, unfolded BatchNorm)
+# ---------------------------------------------------------------------------
+
+
+def _norm(y: torch.Tensor, block, cfg: UNetConfig, train: bool):
+    """Normalize a conv output with f32 statistics and arithmetic (the
+    reference's ``_norm``).  Returns ``(f32 tensor, new_stats or None)``.
+
+    BatchNorm in training: ``F.batch_norm`` on the f32 upcast, batch
+    statistics with the biased variance, and the running update
+    ``(1 - m) * old + m * batch`` with the unbiased variance, on copies of the
+    block's statistics (returned as ``new_stats``).  BatchNorm at eval: the
+    running statistics.  GroupNorm / InstanceNorm: per-sample statistics of
+    the upcast from :func:`_spatial_group_stats`, under autograd.
+    """
+    x = y.float()
+    scale, shift = block["scale"].float(), block["shift"].float()
+    eps = cfg.norm_eps
+    if cfg.norm == "batch":
+        if train:
+            mean = block["mean"].detach().float().clone()
+            var = block["var"].detach().float().clone()
+            out = F.batch_norm(x.permute(0, 4, 1, 2, 3), mean, var, scale, shift, True,
+                               cfg.bn_momentum, eps)
+            return out.permute(0, 2, 3, 4, 1), {"mean": mean, "var": var}
+        mean, var = block["mean"].float(), block["var"].float()
+        return (x - mean) * torch.rsqrt(var + eps) * scale + shift, None
+    if cfg.norm not in ("group", "instance"):
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    N, C = x.shape[0], x.shape[-1]
+    g = cfg.group_norm_groups if cfg.norm == "group" else C
+    mean_g, var_g = _spatial_group_stats(x, g)  # (N, g) each
+    mean = torch.repeat_interleave(mean_g, C // g, dim=1).reshape(N, 1, 1, 1, C)
+    var = torch.repeat_interleave(var_g, C // g, dim=1).reshape(N, 1, 1, 1, C)
+    # (x - mean) * (rsqrt * scale): one full-size product kept for autograd
+    return (x - mean) * (torch.rsqrt(var + eps) * scale) + shift, None
+
+
+def _dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Channel-wise dropout (``nn.Dropout3d``): one keep draw per (sample,
+    channel) from ``generator``, kept channels scaled by 1/keep."""
+    keep = 1.0 - rate
+    N, C = y.shape[0], y.shape[-1]
+    mask = torch.rand((N, 1, 1, 1, C), generator=generator, device=y.device) < keep
+    return torch.where(mask, y / keep, torch.zeros((), dtype=y.dtype, device=y.device)).to(y.dtype)
+
+
+def _block_apply(x, block, cfg: UNetConfig, stride, train: bool, folded: bool,
+                 generator: Optional[torch.Generator] = None):
+    """Conv -> (Dropout) -> Norm -> LeakyReLU, the reference's ``_block_apply``.
+    Returns ``(y at the compute dtype, new_stats)``; a folded BatchNorm block
+    is Conv + LeakyReLU (:func:`_block`)."""
+    if folded and cfg.norm == "batch":
+        return _block(x, block, cfg, stride), None
+    y = _conv(x, block, stride, cfg, None)
+    if generator is not None:
+        y = _dropout(y, cfg.dropout_rate, generator)
+    t, new_stats = _norm(y, block, cfg, train)
+    # where(t >= 0) as the reference (its gradient at 0 is 1); keeps a bool mask only
+    t = torch.where(t >= 0, t, t * cfg.negative_slope)
+    return t.to(cfg.compute_dtype), new_stats
+
+
+def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, folded: bool,
+                       generator: Optional[torch.Generator]):
+    """The reference's non-fused ``apply_unet`` body: returns the final
+    head's logits, or ``(heads full-resolution first, new_stats)``."""
+    stride1 = (1, 1, 1)
+    pool = tuple(cfg.pool_kernel)
+    dtype = cfg.compute_dtype
+    new_stats: Dict[str, Any] = {"encoder": [], "bottleneck": [], "decoder": []}
+    drop = generator if (train and cfg.dropout_rate > 0) else None
+    skips = []
+    h = x
+    for d, stage in enumerate(params["encoder"]):
+        stage_stats = []
+        gen = drop if d in cfg.dropout_levels else None
+        for c, block in enumerate(stage):
+            h, st = _block_apply(h, block, cfg, pool if (d > 0 and c == 0) else stride1, train,
+                                 folded, gen)
+            stage_stats.append(st)
+        new_stats["encoder"].append(stage_stats)
+        skips.append(h)
+    for c, block in enumerate(params["bottleneck"]):
+        h, st = _block_apply(h, block, cfg, pool if c == 0 else stride1, train, folded)
+        new_stats["bottleneck"].append(st)
+    seg_logits = []
+    last = len(params["decoder"]) - 1
+    for u, stage in enumerate(params["decoder"]):
+        h = _upconv(h, stage["up"]["w"], dtype)
+        h = torch.cat([h, skips[-(u + 1)]], dim=-1)
+        stage_stats = []
+        for block in stage["blocks"]:
+            h, st = _block_apply(h, block, cfg, stride1, train, folded)
+            stage_stats.append(st)
+        new_stats["decoder"].append(stage_stats)
+        if heads or u == last:
+            seg_logits.append(_seg_head(h, stage["seg"]["w"], dtype))
+    if heads:
+        return [seg_logits[-1]] + seg_logits[:-1][::-1], new_stats
+    return seg_logits[-1]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
 def apply_unet(
-    params: Dict[str, Any], x: torch.Tensor, cfg: UNetConfig, folded: bool = False
-) -> torch.Tensor:
-    """Eval-mode forward.
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: UNetConfig,
+    train: bool = False,
+    deep_supervision: bool = False,
+    folded: bool = False,
+    generator: Optional[torch.Generator] = None,
+):
+    """Forward pass.
 
     Args:
-      params: for a BatchNorm model, :func:`fold_batchnorm` output; for a
-        GroupNorm / InstanceNorm model, the unfolded parameters (conv kernels
-        at any float dtype: they are used at ``cfg.compute_dtype``).
+      params: :func:`init_params`-layout parameters (conv kernels at any
+        float dtype: they are used at ``cfg.compute_dtype``), or for a
+        BatchNorm model :func:`fold_batchnorm` output with ``folded=True``.
       x: (N, D, H, W, C) input, every spatial axis a multiple of
         ``2**num_pool``.
-      folded: whether a BatchNorm model's norms are folded (the reference's
-        default, False, too).  An unfolded BatchNorm forward is not ported:
-        a BatchNorm model raises unless it is True, and a block that still
-        carries running statistics raises even then.  GroupNorm and
-        InstanceNorm models have nothing to fold and ignore it.
+      train: BatchNorm in batch-statistics mode (with the running-stat
+        update) and dropout active (where ``generator`` is given and
+        ``cfg.dropout_rate > 0``).
+      deep_supervision: return every decoder head, full resolution first.
+      folded: a BatchNorm model's norms are folded into the convs (False by
+        default, as in the reference: the norms then run in the forward,
+        with the running statistics unless ``train``).  A block that still
+        carries running statistics raises under ``folded=True``.  GroupNorm
+        and InstanceNorm models have nothing to fold and ignore it.
+      generator: the ``torch.Generator`` dropout draws from (on ``x``'s
+        device).
 
     Returns:
-      (N, D, H, W, num_classes) f32 logits of the full-resolution head.
+      eval mode: (N, D, H, W, num_classes) f32 logits of the final head.
+      ``train`` or ``deep_supervision``: ``(heads, new_stats)``, the heads'
+      f32 logits full resolution first and ``new_stats`` mirroring the
+      parameter tree with the updated BatchNorm running statistics
+      (``None`` per block outside BatchNorm training).
     """
-    if cfg.norm in ("group", "instance"):
-        return _apply_unet_deferred(params, x, cfg)
-    if cfg.norm != "batch":
+    if cfg.norm not in ("batch", "group", "instance"):
         raise ValueError(f"unknown norm {cfg.norm!r}")
-    if not folded:
-        raise NotImplementedError("unfolded BatchNorm is not ported (see fold_batchnorm)")
+    heads = train or deep_supervision
+    if not heads:
+        if cfg.norm != "batch" and not _records(x, *_leaves(params)):
+            return _apply_unet_deferred(params, x, cfg)
+        if cfg.norm == "batch" and folded:
+            return _apply_unet_folded(params, x, cfg)
+    return _apply_unet_blocks(params, x, cfg, train, heads, folded, generator)
+
+
+def _apply_unet_folded(params, x, cfg: UNetConfig) -> torch.Tensor:
+    """Eval-mode forward of a folded BatchNorm U-Net: Conv + LeakyReLU blocks."""
     stride1 = (1, 1, 1)
     pool = tuple(cfg.pool_kernel)
     h = x.to(cfg.compute_dtype)

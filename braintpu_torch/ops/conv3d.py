@@ -12,6 +12,18 @@ and bf16 output.  The CUDA source is ``csrc/conv3d_tap_merged.cu``.
 * :func:`conv3d_tap_merged_ref` is the plain PyTorch version, used by the
   CPU path and as the kernel's yardstick on the card.
 * ``conv3d_tap_merged.launches`` counts kernel launches (not plain calls).
+
+The function is differentiable, as the reference's ``custom_vjp`` is: when
+autograd records (grad enabled and an input that requires grad), the call
+goes through ``_TapMerged``, whose forward is the same launch (or plain
+call) and whose backward is the library's f32 convolution gradient
+(``aten.convolution_backward`` of the plain conv, TF32 off; the LeakyReLU
+mask, where there is one, from the f32 output recomputed), cast to the
+inputs' dtypes.  That is the reference's own split: its backward is XLA's
+VJP of ``_xla_reference``, not a Pallas kernel.  The Function keeps only
+the bf16 ``x`` and ``w`` (and ``b`` when a slope needs the mask).  Under
+``torch.no_grad`` / ``inference_mode`` nothing is recorded and nothing is
+kept.
 """
 
 from __future__ import annotations
@@ -74,8 +86,54 @@ def conv3d_tap_merged(
       w: (3, 3, 3, ci, co) bf16 (DHWIO).
       b: (co,) f32.
       negative_slope: if not None, fuse ``leaky_relu`` with this slope.
+
+    Differentiable in ``x``, ``w`` and ``b`` (see the module doc).
     """
     _check(x, w, b)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _TapMerged.apply(x, w, b, negative_slope)
+    return _forward(x, w, b, negative_slope)
+
+
+def _conv_backward(x, w, dy, mask_slope: Optional[float], b=None):
+    """f32 gradients of the plain conv (+ bias, + LeakyReLU) at ``dy``:
+    ``(dx, dw, db)`` in NDHWC / DHWIO / (co,) f32."""
+    xf = x.float().permute(0, 4, 1, 2, 3)
+    wf = w.float().permute(4, 3, 0, 1, 2)
+    dyf = dy.float()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        if mask_slope is not None:
+            y = F.conv3d(xf, wf, b, padding=1).permute(0, 2, 3, 4, 1)
+            dyf = torch.where(y >= 0, dyf, dyf * mask_slope)
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            dyf.permute(0, 4, 1, 2, 3), xf, wf, [wf.shape[0]], [1, 1, 1], [1, 1, 1], [1, 1, 1],
+            False, [0, 0, 0], 1, [True, True, True])
+    return dx.permute(0, 2, 3, 4, 1), dw.permute(2, 3, 4, 1, 0), db
+
+
+class _TapMerged(torch.autograd.Function):
+    """The kernel's forward with the library's f32 gradient (the reference's
+    ``_tap_merged_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, negative_slope):
+        ctx.negative_slope = negative_slope
+        if negative_slope is None:
+            ctx.save_for_backward(x, w)
+        else:
+            ctx.save_for_backward(x, w, b)
+        return _forward(x, w, b, negative_slope)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, *rest = ctx.saved_tensors
+        dx, dw, db = _conv_backward(x, w, dy, ctx.negative_slope, rest[0] if rest else None)
+        return dx.to(x.dtype), dw.to(w.dtype), db.float(), None
+
+
+def _forward(x, w, b, negative_slope: Optional[float]) -> torch.Tensor:
+    """The launch on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return conv3d_tap_merged_ref(x, w, b, negative_slope)
     if x.device.type != "cuda":

@@ -33,6 +33,7 @@ __all__ = [
     "compute_brain_mask",
     "crop_to_nonzero",
     "zscore_masked",
+    "zscore_masked_np",
     "pad_to_patch",
     "preprocess_case",
     "PreprocessResult",
@@ -105,6 +106,19 @@ def zscore_masked(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mean = (data * m).sum(dim=(1, 2, 3), keepdim=True) / n
     var = (((data - mean) * m) ** 2).sum(dim=(1, 2, 3), keepdim=True) / n
     return (data - mean) / (torch.sqrt(var) + 1e-8) * m
+
+
+def zscore_masked_np(data: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Host (numpy) :func:`zscore_masked`, the same arithmetic in f32, for
+    callers that need the result on the host (the training data loader)."""
+    data = np.asarray(data, dtype=np.float32)
+    m = np.asarray(mask, dtype=np.float32)[None]
+    n = np.maximum(m.sum(axis=(1, 2, 3), keepdims=True), 1.0)
+    masked = data * m
+    mean = masked.sum(axis=(1, 2, 3), keepdims=True) / n
+    var = (((data - mean) * m) ** 2).sum(axis=(1, 2, 3), keepdims=True) / n
+    std = np.sqrt(var)
+    return (data - mean) / (std + 1e-8) * m
 
 
 def pad_to_patch(

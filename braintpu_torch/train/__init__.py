@@ -1,1 +1,3 @@
-"""Training-side helpers; this slice ports only the synthetic case generator."""
+"""Training: the nnU-Net recipe (Dice + BCE deep supervision, SGD with the
+poly schedule), its data loader and augmentation, checkpoints with
+``torch.save``, and the synthetic case generator."""

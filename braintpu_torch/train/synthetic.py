@@ -22,13 +22,13 @@ runs exactly as it would on real data.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from ..io import nifti
 
-__all__ = ["synth_case_arrays", "write_synth_case"]
+__all__ = ["synth_case_arrays", "write_synth_case", "write_synth_dataset"]
 
 #: baseline tissue intensity per modality (arbitrary scanner units)
 _TISSUE = {"t1": 900.0, "t1ce": 950.0, "t2": 600.0, "flair": 500.0}
@@ -134,3 +134,17 @@ def write_synth_case(
         nifti.save(np.round(vol).astype(np.int16), case_dir / f"{case_id}_{mod}.nii.gz", affine=affine)
     nifti.save(seg, case_dir / f"{case_id}_seg.nii.gz", affine=affine)
     return case_dir
+
+
+def write_synth_dataset(
+    root: Path,
+    n_cases: int,
+    seed0: int = 0,
+    shape: Tuple[int, int, int] = (128, 128, 112),
+    prefix: str = "BraTS-SYN",
+) -> List[Path]:
+    """``n_cases`` deterministic cases under ``root``; returns case dirs."""
+    return [
+        write_synth_case(root, f"{prefix}-{seed0 + i:05d}-000", seed0 + i, shape)
+        for i in range(n_cases)
+    ]

@@ -6,12 +6,14 @@ packages, model files, data), re-targeted at this stack.
 
 Required (a failure makes ``check-env`` exit 1): Python >= 3.10; torch built
 with CUDA; a CUDA device of compute capability 9.0 (the kernels are built for
-``sm_90a``); ``nvcc``, found the way the kernel build finds it; numpy; scipy.
+``sm_90a``); ``nvcc``, found the way the kernel build finds it; numpy; scipy;
+with ``--checkpoints``, at least one ``.npz`` or ``.model`` file under it
+(as the reference); the built-in knowledge base with its 7 documents or more
+(as the reference).
 
 Information only: ``g++`` (the native host library); whether each
 ``csrc/*.cu`` already has a library built under its current hash (else it
-builds at first use, or at the server's warm-up); optional packages;
-checkpoints; the built-in knowledge base.
+builds at first use, or at the server's warm-up); optional packages.
 """
 
 from __future__ import annotations
@@ -86,12 +88,14 @@ def run_env_checks(checkpoint_dir: Optional[Path] = None) -> List[Dict]:
             checks.append(_info(f"optional {pkg}", "absent (feature degrades gracefully)"))
     if checkpoint_dir is not None:
         ckpt = Path(checkpoint_dir)
-        files = sorted(ckpt.glob("**/*.npz"))
-        checks.append(_info("model checkpoints", f"{len(files)} npz file(s) under {ckpt}"))
+        files = sorted(ckpt.glob("**/*.npz")) + sorted(ckpt.glob("**/*.model"))
+        checks.append(_check("model checkpoints", bool(files),
+                             f"{len(files)} file(s) under {ckpt}" if files else f"none under {ckpt}"))
 
     from ..rag import builtin_knowledge_base
 
-    checks.append(_info("knowledge base", f"{len(builtin_knowledge_base())} built-in documents"))
+    kb = builtin_knowledge_base()
+    checks.append(_check("knowledge base", len(kb) >= 7, f"{len(kb)} built-in documents"))
     return checks
 
 

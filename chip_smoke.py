@@ -45,7 +45,22 @@ job alone, then two jobs in flight at once, report / PDF / metrics / chat
 requests, launches against the formula, the served labels against a direct
 ``Pipeline.run_case``); phase 10b starts ``python -m braintpu_torch.cli
 serve`` as a process, serves one job and stops it with SIGINT; phase 10c
-runs ``check-env``, which must pass on the card.  Every phase prints its
+runs ``check-env``, which must pass on the card.  The training slice:
+phase 4e holds the tap kernel without LeakyReLU at the training forward's
+band shapes (level 1 of a 128^3 patch at batch 2, both models) and its
+autograd backward (dx, dw, db against f32 plain gradients), with the
+forward, ``F.conv3d`` and backward times; phase 11 trains MODEL1_BN and
+MODEL2_GN_LARGE at full width (128^3, batch 2, bf16; 3 warm-up steps, then
+20 and 10 timed ones: s/step, peak memory, tap launches per step against
+the dispatch's formula, finite losses); phase 11b runs
+``tools/train_synthetic.py``'s recipe (model 1, 64^3, batch 2, LR 0.01,
+mirror) for 300 steps on the synthetic dataset it writes (seeds 0-11),
+prints its losses beside the reference's log, exports the fold to npz and
+segments held-out seed 100 with it; phase 11c runs ``python -m
+braintpu_torch.cli train`` as a process twice and checks the resume;
+phase 11d converts a full-width model-1 state dict in nnU-Net naming
+(``convert-checkpoint``) and segments from the ``.model``, a raw nnU-Net
+tree and the npz, which must give the same labels.  Every phase prints its
 wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
@@ -56,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gzip
 import json
 import os
@@ -553,6 +569,154 @@ def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") ->
         trace.unlink()
 
 
+#: the reference's training log of the recipe below (tools/train_synthetic.py, fold 0)
+REF_TRAIN_LOG = ROOT / "results" / "trained_synth" / "train_log.jsonl"
+#: the training phases' two models at full width (phase 11)
+TRAIN_MODELS = ("model1", "model2")
+
+
+def check_tap_train(torch, shape, co, seed: int) -> dict:
+    """The tap kernel without LeakyReLU at one training shape: its forward
+    against the plain version, and the autograd Function's dx, dw and db
+    against f32 plain gradients (autograd through ``F.conv3d`` of the same
+    bf16 operands, TF32 off), each within TOL of max|plain|; then the kernel
+    forward's, the plain version's, ``F.conv3d``'s and the backward's times."""
+    import torch.nn.functional as F
+
+    from braintpu_torch.ops import conv3d as tap
+
+    N, D, H, W, ci = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*shape, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(3, 3, 3, ci, co, device="cuda", generator=g) / (27 * ci) ** 0.5).bfloat16()
+    b = torch.randn(co, device="cuda", generator=g) * 0.1
+    dy = torch.randn(N, D, H, W, co, device="cuda", generator=g).bfloat16()
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+    y = tap.conv3d_tap_merged(xg, wg, bg)  # through the autograd Function
+    y.backward(dy)
+    xf, wf, bf = x.float().requires_grad_(), w.float().requires_grad_(), b.clone().requires_grad_()
+    yf = F.conv3d(xf.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2), bf, padding=1)
+    yf.permute(0, 2, 3, 4, 1).backward(dy.float())
+    torch.cuda.synchronize()
+    errors = {}
+    for name, got, want in (("y", y, tap.conv3d_tap_merged_ref(x, w, b)), ("dx", xg.grad, xf.grad),
+                            ("dw", wg.grad, wf.grad), ("db", bg.grad, bf.grad)):
+        e = (got.float() - want.float()).abs().max().item()
+        tol = TOL * want.float().abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"tap kernel {name} disagrees at {shape}->{co}: {e} > {tol}")
+        errors[name] = {"max_abs_err": e, "tol": tol}
+    del xg, wg, bg, y, xf, wf, bf, yf
+    kernel_ms = cuda_ms(torch, lambda: tap.conv3d_tap_merged(x, w, b))
+    plain_ms = cuda_ms(torch, lambda: tap.conv3d_tap_merged_ref(x, w, b))
+    xc = x.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    bb = b.bfloat16()
+    library_ms = cuda_ms(torch, lambda: F.conv3d(xc, wc, bb, padding=1))
+    backward_ms = cuda_ms(torch, lambda: tap._conv_backward(x, w, dy, None))
+    vox = N * D * H * W
+    flops = 2 * vox * 27 * ci * co
+    bound, by = _bound((x.numel() + w.numel() + vox * co) * 2 + b.numel() * 4, flops)
+    return {"shape": [N, D, H, W, ci, co], "errors": errors,
+            "max_abs_err": max(e["max_abs_err"] for e in errors.values()),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "backward_ms": backward_ms, "bound_ms": bound, "bound_by": by,
+            "tflops": flops / kernel_ms / 1e9, "backward_tflops_f32": 2 * flops / backward_ms / 1e9}
+
+
+def train_run(torch, cfg, batches, warmup: int, timed: int, kernels: dict) -> dict:
+    """``train_step`` from ``init_params(cfg, 0)`` on the card: ``warmup``
+    steps, then ``timed`` steps (host clock around each step, which ends by
+    reading the loss) with every kernel count at 0 before and read after.
+    Fails on a non-finite loss, on tap launches per step off the dispatch's
+    formula, or on any launch of the inference-only kernels."""
+    import numpy as np
+
+    from braintpu_torch.models.unet3d import choose_impl, conv_layers, init_params
+    from braintpu_torch.train.trainer import TrainConfig, create_train_state, train_step
+
+    tc = TrainConfig()
+    state = create_train_state(init_params(cfg, 0), tc, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_batch = batches[0]["image"].shape[0]
+    patch = tuple(batches[0]["image"].shape[1:4])
+    for i in range(warmup):
+        state, m = train_step(state, batches[i % len(batches)], cfg, tc, gen)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    secs, losses, norms = [], [], []
+    for i in range(timed):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batches[(warmup + i) % len(batches)], cfg, tc, gen)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = len([1 for s, st, co in conv_layers(cfg, patch, n_batch)
+                    if choose_impl(s, (3, 3, 3), st, co, cfg.compute_dtype) == "kernel"])
+    want = {name: (per_step * timed if name == "conv3d_tap_merged" else 0) for name in kernels}
+    if launches != want or per_step == 0:
+        raise AssertionError(f"training launches {launches} != {want} ({per_step} tap layers "
+                             "per step)")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"non-finite loss or gradient norm: {losses} {norms}")
+    del state
+    torch.cuda.empty_cache()
+    return {"patch": list(patch), "batch": n_batch, "compute_dtype": str(cfg.compute_dtype),
+            "steps_timed": timed, "warmup_steps": warmup, "s_per_step": secs,
+            "s_per_step_min": min(secs), "s_per_step_median": statistics.median(secs),
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "tap_launches_per_step": launches["conv3d_tap_merged"] / timed,
+            "tap_launches_per_step_formula": per_step, "loss": losses, "grad_norm": norms}
+
+
+def _flat(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def nnunet_state_dict(torch, tree, cfg) -> dict:
+    """The reference-layout tree as an nnU-Net ``Generic_UNet`` state dict
+    (torch layouts and names): what ``convert_state_dict`` reads back."""
+    import numpy as np
+
+    def conv(prefix, blk):
+        out = {f"{prefix}.conv.weight": blk["w"].transpose(4, 3, 0, 1, 2),
+               f"{prefix}.conv.bias": blk["b"], f"{prefix}.instnorm.weight": blk["scale"],
+               f"{prefix}.instnorm.bias": blk["shift"]}
+        if "mean" in blk:
+            out[f"{prefix}.instnorm.running_mean"] = blk["mean"]
+            out[f"{prefix}.instnorm.running_var"] = blk["var"]
+        return out
+
+    P, cps = cfg.num_pool, cfg.conv_per_stage
+    sd = {}
+    for d, stage in enumerate(tree["encoder"]):
+        for c, blk in enumerate(stage):
+            sd.update(conv(f"conv_blocks_context.{d}.blocks.{c}", blk))
+    for c, blk in enumerate(tree["bottleneck"]):
+        sd.update(conv(f"conv_blocks_context.{P}.0.blocks.{c}" if c < cps - 1
+                       else f"conv_blocks_context.{P}.1.blocks.0", blk))
+    for u, st in enumerate(tree["decoder"]):
+        sd[f"tu.{u}.weight"] = st["up"]["w"].transpose(0, 4, 1, 2, 3)
+        for c, blk in enumerate(st["blocks"]):
+            sd.update(conv(f"conv_blocks_localization.{u}.0.blocks.{c}" if c < cps - 1
+                           else f"conv_blocks_localization.{u}.1.blocks.0", blk))
+        sd[f"seg_outputs.{u}.weight"] = st["seg"]["w"].transpose(4, 3, 0, 1, 2)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -604,7 +768,11 @@ def main() -> int:
     from braintpu_torch.report import SlotValidator
     from braintpu_torch.serve import make_server
     from braintpu_torch.tools import probe
-    from braintpu_torch.train.synthetic import write_synth_case
+    from braintpu_torch.cli import main as cli_main
+    from braintpu_torch.ckpt.npz import load_pytree_npz, params_to_jax, save_pytree_npz
+    from braintpu_torch.train.data import PatchSampler
+    from braintpu_torch.train.synthetic import write_synth_case, write_synth_dataset
+    from braintpu_torch.train.trainer import TrainConfig, create_train_state, fit
 
     # the segmentation kernels; int8_matmul (the probe's) is counted apart
     kernels = {"conv3d_tap_merged": conv3d_tap_merged, "conv_stage": conv_stage,
@@ -752,6 +920,23 @@ def main() -> int:
 
         with phase("4d RAG top-k on the card"):
             print(json.dumps({"rag_topk": check_rag_topk(torch)}), flush=True)
+            torch.cuda.empty_cache()
+
+        train_tap = []
+        with phase("4e tap kernel with its gradient at the training shapes"):
+            # level 1 of a 128^3 training patch at batch 2 (D = 64): each
+            # model's band convs, without LeakyReLU (the norm sits between
+            # the conv and the activation); forward and autograd backward
+            shapes = []
+            for cfg in (MODEL1_BN, MODEL2_GN_LARGE):
+                for s, st, co in conv_layers(cfg, patch, 2):
+                    if (choose_impl(s, (3, 3, 3), st, co, cfg.compute_dtype) == "kernel"
+                            and (s, co) not in shapes):
+                        shapes.append((s, co))
+            for i, (s, co) in enumerate(shapes):
+                r = check_tap_train(torch, s, co, seed=300 + i)
+                train_tap.append(r)
+                print(json.dumps({"tap_train": r}), flush=True)
             torch.cuda.empty_cache()
 
         # model 1 alone: the first slice's main path, now also through upconv2x
@@ -1354,6 +1539,123 @@ def main() -> int:
             if out.returncode != 0:
                 raise AssertionError(f"check-env exited with {out.returncode} on the card")
 
+        with phase("11 train (both models, full width, 128^3, batch 2, bf16)"):
+            # the recipe's synthetic dataset: train seeds 0-11, held-out seed 100
+            train_dir, val_dir = tmp / "train", tmp / "val"
+            write_synth_dataset(train_dir, 12, seed0=0)
+            write_synth_dataset(val_dir, 1, seed0=100)
+            train_cases = find_cases(train_dir)
+
+            it = iter(PatchSampler(train_cases, patch_size=patch, batch_size=2, seed=0))
+            batches = [next(it) for _ in range(4)]
+            train_results = {}
+            for name, cfg, n_timed in (("model1", MODEL1_BN, 20), ("model2", MODEL2_GN_LARGE, 10)):
+                train_results[name] = train_run(torch, cfg, batches, 3, n_timed, kernels)
+                print(json.dumps({"train": {name: train_results[name]}}), flush=True)
+
+        recipe_steps = 300
+        with phase(f"11b recipe: model 1, 64^3, batch 2, LR 0.01, mirror, {recipe_steps} steps"):
+            # tools/train_synthetic.py's recipe (init seed 0, sampler seed 0,
+            # its 2500-step schedule), stopped early; then export, segment
+            rcfg = dataclasses.replace(MODEL1_BN, patch_size=(64,) * 3)
+            tc = TrainConfig(base_lr=0.01, max_steps=2500)
+            state = create_train_state(init_params(rcfg, 0), tc, device="cuda")
+            sampler = PatchSampler(train_cases, patch_size=(64,) * 3, batch_size=2, seed=0,
+                                   mirror=True)
+            losses = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            state = fit(state, iter(sampler), rcfg, tc, num_steps=recipe_steps,
+                        generator=torch.Generator(device="cuda").manual_seed(1000),
+                        on_metrics=lambda m: losses.__setitem__(int(m["step"]), m["loss"]))
+            torch.cuda.synchronize()
+            recipe_s = time.perf_counter() - t0
+            recipe_launches = counts()
+            ref_losses = {r["step"]: r["loss"] for r in
+                          map(json.loads, REF_TRAIN_LOG.read_text().splitlines())}
+            fold = tmp / "recipe" / "model1" / "fold_0.npz"
+            save_pytree_npz(params_to_jax(state.params, rcfg), fold)
+            del state
+            torch.cuda.empty_cache()
+            engine_r = load_engine(build_parser().parse_args(
+                ["segment", "--input", str(val_dir), "--output", str(tmp / "out_recipe"),
+                 "--checkpoints", str(tmp / "recipe"), "--models", "model1", "--folds", "1"]))
+            _, info_r, dice_r = segment(engine_r, val_dir)
+            del engine_r
+            torch.cuda.empty_cache()
+            shown = sorted({1, 50, recipe_steps} | {k for k in ref_losses if k <= recipe_steps})
+            print(json.dumps({"recipe": {
+                "model": "MODEL1_BN", "patch": [64, 64, 64], "batch": 2, "base_lr": 0.01,
+                "schedule_max_steps": 2500, "steps": recipe_steps, "wall_s": recipe_s,
+                "s_per_step_mean": recipe_s / recipe_steps, "launches": recipe_launches,
+                "loss": {k: losses[k] for k in shown if k in losses},
+                "reference_loss": {k: ref_losses[k] for k in shown if k in ref_losses},
+                "heldout": "BraTS-SYN-00100-000", "heldout_dice": dice_r,
+                "note": "the reference's losses are its TPU run's, information only; the "
+                        "wall time includes the host's patch sampling"}}), flush=True)
+            if not all(np.isfinite(v) for v in losses.values()) or len(losses) != recipe_steps:
+                raise AssertionError(f"recipe: {len(losses)} steps, non-finite loss")
+
+        with phase("11c cli train as a process, then resumed"):
+            ck = tmp / "train_ck"
+            cmd = [sys.executable, "-u", "-m", "braintpu_torch.cli", "train", "--model", "model1",
+                   "--data", str(train_dir), "--checkpoint-dir", str(ck), "--log-every", "1"]
+            runs = []
+            for steps in (2, 4):
+                t0 = time.perf_counter()
+                out = subprocess.run(cmd + ["--steps", str(steps)], cwd=ROOT, capture_output=True,
+                                     text=True, timeout=600)
+                runs.append({"steps": steps, "exit_code": out.returncode,
+                             "s": time.perf_counter() - t0,
+                             "output": out.stdout.strip().splitlines()[-6:]})
+                if out.returncode != 0:
+                    raise AssertionError(f"cli train --steps {steps} exited {out.returncode}: "
+                                         f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+            second = "\n".join(runs[1]["output"])
+            saved = sorted(int(p_.name) for p_ in ck.iterdir() if p_.name.isdigit())
+            resumed = ("step       3" in second and "step       1" not in second
+                       and "done at step 4" in second)
+            print(json.dumps({"cli_train": {"runs": runs, "checkpoints": saved,
+                                            "resumed_at_step_3": resumed}}), flush=True)
+            if not resumed or saved != [2, 4]:
+                raise AssertionError(f"cli train did not resume: checkpoints {saved}")
+
+        with phase("11d convert-checkpoint: a full-width .model and a raw nnU-Net tree"):
+            tree = load_pytree_npz(CKPTS / "model1" / "fold_0.npz")
+            model_root = tmp / "ck_model"
+            mfile = model_root / "model1" / "fold_0" / "model_final_checkpoint.model"
+            mfile.parent.mkdir(parents=True)
+            torch.save({"state_dict": nnunet_state_dict(torch, tree, MODEL1_BN), "epoch": 1000},
+                       mfile)
+            raw = (tmp / "ck_tree" / "3d_fullres" / "Task500_BraTS2021"
+                   / "nnUNetTrainerV2BraTSRegions_DA4_BN_BD__nnUNetPlansv2.1" / "fold_0")
+            raw.mkdir(parents=True)
+            shutil.copy(mfile, raw / mfile.name)
+            npz_root = tmp / "ck_npz"
+            if cli_main(["convert-checkpoint", "--input", str(mfile), "--output",
+                         str(npz_root / "model1" / "fold_0.npz"), "--config", "model1"]) != 0:
+                raise AssertionError("convert-checkpoint failed")
+            conv = load_pytree_npz(npz_root / "model1" / "fold_0.npz")
+            flat_a = {k: v for k, v in _flat(tree)}
+            exact = all(np.array_equal(flat_a[k].astype(np.float32), v) for k, v in _flat(conv))
+            labels = {}
+            for src, root_ in (("npz", npz_root), ("model", model_root),
+                               ("tree", tmp / "ck_tree")):
+                out_dir = tmp / f"seg_{src}"
+                if cli_main(["segment", "--input", str(anchor), "--output", str(out_dir),
+                             "--checkpoints", str(root_), "--models", "model1", "--folds",
+                             "1"]) != 0:
+                    raise AssertionError(f"segment from the {src} checkpoint failed")
+                labels[src] = nifti.load(out_dir / "BraTS-SYN-00200-000.nii.gz").get_fdata(
+                    dtype="float32")
+            same = {k: bool(np.array_equal(labels["npz"], labels[k])) for k in ("model", "tree")}
+            print(json.dumps({"convert": {"source": "results/trained_synth/checkpoints/model1/"
+                                          "fold_0.npz as an nnU-Net state dict",
+                                          "converted_equals_source_f32": exact,
+                                          "labels_equal_to_npz": same}}), flush=True)
+            if not exact or not all(same.values()):
+                raise AssertionError(f"conversion: exact {exact}, same labels {same}")
+
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
         return max(at_main, key=lambda r: r["bound_ms"])
@@ -1380,6 +1682,8 @@ def main() -> int:
             "shape": h["shape"], "ms": h["kernel_ms"], "device_ms": h.get("device_ms"),
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"],
+            "launches_train_step": {m: train_results[m].get("launches", {}).get(name, 0)
+                                    / train_results[m].get("steps_timed", 1) for m in TRAIN_MODELS},
         })
     cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
     line.append({

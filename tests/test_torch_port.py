@@ -63,7 +63,10 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
               "braintpu_torch.infer.gaussian", "braintpu_torch.serve.api",
               "braintpu_torch.serve.jobs", "braintpu_torch.rag.store",
               "braintpu_torch.rag.assistant", "braintpu_torch.utils.config",
-              "braintpu_torch.utils.envcheck"):
+              "braintpu_torch.utils.envcheck", "braintpu_torch.ckpt.convert",
+              "braintpu_torch.ckpt.discover", "braintpu_torch.train.augment",
+              "braintpu_torch.train.checkpoint", "braintpu_torch.train.data",
+              "braintpu_torch.train.losses", "braintpu_torch.train.trainer"):
         assert m in mods
 
 
@@ -132,8 +135,17 @@ def test_engine_rejects_what_is_not_ported():
         InferenceEngine(models=[bundle], ensemble="vote", device="cpu")
     with pytest.raises(TypeError, match="spatial_shard"):
         InferenceEngine(models=[bundle], spatial_shard=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        unet3d.apply_unet({}, torch.zeros(1, 32, 32, 32, 4), unet3d.MODEL1_BN, folded=False)
+    # an unfolded BatchNorm forward is ported: eval BatchNorm with the running
+    # statistics, equal at f32 to the folded forward (tests/test_torch_repairs.py
+    # holds both against the reference's folded=False)
+    cfg = unet3d.UNetConfig(base_features=8, max_features=16, num_pool=2,
+                            compute_dtype=torch.float32)
+    params = unet3d.init_params(cfg, 1)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 16, 16, 16, 4))
+                         .astype(np.float32))
+    want = unet3d.apply_unet(unet3d.fold_batchnorm(params, cfg), x, cfg, folded=True)
+    got = unet3d.apply_unet(params, x, cfg, folded=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("bad", ["x_dtype", "w_dtype", "b_dtype", "shape", "channels"])
