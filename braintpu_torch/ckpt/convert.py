@@ -22,10 +22,21 @@ ConvTranspose3d ``(I, O, kd, kh, kw) -> (I, kd, kh, kw, O)``; seg 1x1x1
 
 The result is a tree of f32 numpy arrays, the reference's own output, which
 ``ckpt.npz.params_from_jax`` turns into the port's parameters and
-``ckpt.npz.save_pytree_npz`` writes as a fold.  The axial-attention
-families (``axial_embedding`` / ``axial_attention`` / ``axial_attention_up``
-/ ``axial_attention_down`` keys) are not ported yet (ROADMAP A4): such a
-state dict raises ``ValueError``.
+``ckpt.npz.save_pytree_npz`` writes as a fold.
+
+The axial families map too.  ``axial_mode="full"`` (Axial_UNet):
+``axial_attention_down.{j}`` / ``axial_attention_up.{j}``, each an
+``axial_attention`` sequential of positional embedding (0), attention (1)
+and BatchNorm (2), onto ``encoder_attn[d]`` and the decoder stages'
+``attn_block``; ``axial_mode="decoder"`` (Generic_UNet):
+``axial_embedding.{j}`` + ``axial_attention.{j}`` onto the decoder stages'
+``attn``.  ``j`` counts the attending levels in build order (the as-built
+sequential indexing of the reference's converter).  The ``axial_attention``
+package's layout: ``<emb>.param_{0,1,2}`` are (1, C, D, 1, 1) / (1, C, 1,
+H, 1) / (1, C, 1, 1, W) additive embeddings; ``<attn>.axial_attentions.{i}
+.fn.to_q`` / ``to_kv`` / ``to_out`` the per-axis Linears in D, H, W order,
+``to_q`` and ``to_kv`` fused into one (C, 3 inner) projection here and
+``to_out``'s bias kept as ``out_b``.
 """
 
 from __future__ import annotations
@@ -60,18 +71,46 @@ def _conv_block_from(sd: Mapping[str, Any], prefix: str, has_bn_stats: bool) -> 
     return block
 
 
-def convert_state_dict(sd: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
-    """Map a ``Generic_UNet`` state_dict onto the parameter tree (f32 numpy
-    leaves), checked against ``cfg``'s channel plan.
+def _axial_params_from(sd: Mapping[str, Any], emb_prefix: str, attn_prefix: str) -> Dict[str, Any]:
+    """AxialPositionalEmbedding + AxialAttention state -> axial parameters."""
+    pos = {}
+    for i, name in enumerate("dhw"):
+        p = _np(sd[f"{emb_prefix}.param_{i}"])
+        pos[name] = p.reshape(p.shape[1], -1).T  # (1, C, ..axis..) -> (axis, C)
+    axes = []
+    for i in range(3):
+        base = f"{attn_prefix}.axial_attentions.{i}.fn"
+        q = _np(sd[f"{base}.to_q.weight"])  # (inner, C), torch Linear layout
+        kv = _np(sd[f"{base}.to_kv.weight"])  # (2 inner, C), k then v
+        ax = {"qkv": np.concatenate([q.T, kv.T], axis=1),  # (C, 3 inner): q | k | v
+              "out": _np(sd[f"{base}.to_out.weight"]).T}  # (inner, C)
+        if f"{base}.to_out.bias" in sd:
+            ax["out_b"] = _np(sd[f"{base}.to_out.bias"])
+        axes.append(ax)
+    return {"pos": pos, "axes": axes}
 
-    Raises ``ValueError`` for an axial-attention state dict (not ported) or
-    a shape that does not match ``cfg``; ``KeyError`` for a missing tensor.
+
+def _axial_bn_from(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "shift": _np(sd[f"{prefix}.bias"]),
+            "mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])}
+
+
+def _axial_block_from(sd: Mapping[str, Any], base: str) -> Dict[str, Any]:
+    """One AxialAttention3D sequential (embedding, attention, BatchNorm if saved)."""
+    blk: Dict[str, Any] = {"attn": _axial_params_from(sd, f"{base}.0", f"{base}.1")}
+    if f"{base}.2.running_mean" in sd:
+        blk["bn"] = _axial_bn_from(sd, f"{base}.2")
+    return blk
+
+
+def convert_state_dict(sd: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
+    """Map a ``Generic_UNet`` / ``Axial_UNet`` state_dict onto the parameter
+    tree (f32 numpy leaves), checked against ``cfg``'s channel plan.
+
+    Raises ``ValueError`` for a shape that does not match ``cfg``;
+    ``KeyError`` for a missing tensor.
     """
     sd = {k.replace("module.", "", 1) if k.startswith("module.") else k: v for k, v in sd.items()}
-    axial = sorted({k.split(".", 1)[0] for k in sd if k.startswith("axial_")})
-    if axial:
-        raise ValueError(f"axial-attention checkpoint ({', '.join(axial)}): the axial "
-                         "families are not ported yet (ROADMAP A4)")
     has_bn = cfg.norm == "batch"
     P = cfg.num_pool
 
@@ -100,6 +139,21 @@ def convert_state_dict(sd: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]
         decoder.append({"up": {"w": up_w}, "blocks": blocks, "seg": {"w": seg_w}})
 
     params = {"encoder": encoder, "bottleneck": bottleneck, "decoder": decoder}
+    if cfg.axial_attention and cfg.axial_mode == "full":
+        att_levels = [d for d in range(P) if d not in cfg.no_attention_levels]
+        encoder_attn = {str(d): _axial_block_from(sd, f"axial_attention_down.{j}.axial_attention")
+                        for j, d in enumerate(att_levels)}
+        if encoder_attn:
+            params["encoder_attn"] = encoder_attn
+        up = [u for u in range(P) if (P - u - 1) not in cfg.no_attention_levels]
+        for k, u in enumerate(up):
+            decoder[u]["attn_block"] = _axial_block_from(
+                sd, f"axial_attention_up.{k}.axial_attention")
+    elif cfg.axial_attention:
+        up = [u for u in range(P) if u not in cfg.no_attention_levels]
+        for j, u in enumerate(up):
+            decoder[u]["attn"] = _axial_params_from(sd, f"axial_embedding.{j}",
+                                                    f"axial_attention.{j}")
     _validate_shapes(params, cfg)
     return params
 

@@ -11,7 +11,11 @@ file written by either package loads equal in the other.
 :func:`params_from_jax` turns such a tree (DHWIO conv kernels,
 ``(Ci,2,2,2,Co)`` up-convs, ``(1,1,1,C,K)`` seg heads) into the port's
 parameters: the same nested structure and layout, as torch tensors on the
-CPU, checked against the architecture.  Values keep their stored dtype (the
+CPU, checked against the architecture.  An axial tree's attention subtrees
+(``encoder_attn``, a decoder stage's ``attn`` / ``attn_block``, their
+BatchNorm and a converted checkpoint's ``out_b``) are carried as well, each
+where ``models.unet3d.attention_plan`` puts it; a missing or extra subtree
+raises.  Values keep their stored dtype (the
 trained folds are f16, and that quantization is part of the weights);
 ``infer.engine.ModelBundle.from_folds`` upcasts after loading.
 :func:`params_to_jax` is its inverse: the port's parameters (a trained
@@ -28,7 +32,8 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-from ..models.unet3d import UNetConfig, decoder_channels, encoder_features, bottleneck_features
+from ..models.unet3d import (UNetConfig, attention_plan, bottleneck_features, decoder_channels,
+                             encoder_features)
 
 __all__ = ["flatten_pytree", "load_pytree_npz", "params_from_jax", "params_to_jax",
            "save_pytree_npz", "unflatten_pytree"]
@@ -130,14 +135,67 @@ def _block(tree: Mapping[str, Any], ci: int, co: int, cfg: UNetConfig, where: st
     return out
 
 
+def _keys(tree: Mapping[str, Any], want, where: str, optional=()) -> None:
+    """Raise unless the dict's keys are ``want`` plus any of ``optional``."""
+    have = set(tree)
+    if not set(want) <= have or not have <= set(want) | set(optional):
+        raise ValueError(f"{where}: keys {sorted(have)}, expected {sorted(want)}"
+                         + (f" (optional {sorted(optional)})" if optional else ""))
+
+
+def _attention(tree: Mapping[str, Any], spec: Dict[str, Any], where: str) -> Dict[str, Any]:
+    """One axial attention (positional embeddings, three axes' projections
+    and their optional output bias), shape-checked against its spec: ``qkv``
+    (C, 3 inner) and ``out`` (inner, C) with ``inner`` a multiple of the
+    level's ``dim_head`` (the head count is the checkpoint's own)."""
+    C, shape = spec["channels"], spec["shape"]
+    _keys(tree, ("pos", "axes"), where)
+    _keys(tree["pos"], ("d", "h", "w"), f"{where}/pos")
+    pos = {k: _tensor(tree["pos"][k], (n, C), f"{where}/pos/{k}") for k, n in zip("dhw", shape)}
+    if len(tree["axes"]) != 3:
+        raise ValueError(f"{where}/axes: expected 3 axes, got {len(tree['axes'])}")
+    axes = []
+    for i, ax in enumerate(tree["axes"]):
+        at = f"{where}/axes/{i}"
+        _keys(ax, ("qkv", "out"), at, optional=("out_b",))
+        inner = np.shape(ax["out"])[0]
+        if inner <= 0 or inner % spec["dim_head"]:
+            raise ValueError(f"{at}/out: inner width {inner} is not a multiple of dim_head "
+                             f"{spec['dim_head']}")
+        out = {"qkv": _tensor(ax["qkv"], (C, 3 * inner), f"{at}/qkv"),
+               "out": _tensor(ax["out"], (inner, C), f"{at}/out")}
+        if "out_b" in ax:
+            out["out_b"] = _tensor(ax["out_b"], (C,), f"{at}/out_b")
+        axes.append(out)
+    return {"pos": pos, "axes": axes}
+
+
+def _attention_subtree(tree: Mapping[str, Any], spec: Dict[str, Any], cfg: UNetConfig,
+                       where: str) -> Dict[str, Any]:
+    """A decoder-variant ``attn`` or an AxialAttention3D ``attn_block`` (its
+    attention and, with ``cfg.axial_bn``, its BatchNorm)."""
+    if spec["kind"] == "attn":
+        return _attention(tree, spec, where)
+    _keys(tree, ("attn", "bn") if cfg.axial_bn else ("attn",), where)
+    out = {"attn": _attention(tree["attn"], spec, f"{where}/attn")}
+    if cfg.axial_bn:
+        _keys(tree["bn"], _BLOCK_KEYS[2:], f"{where}/bn")
+        out["bn"] = {k: _tensor(tree["bn"][k], (spec["channels"],), f"{where}/bn/{k}")
+                     for k in _BLOCK_KEYS[2:]}
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
     """The port's parameters from a reference-layout numpy tree (see module doc).
 
-    Raises ``ValueError`` when a leaf is missing or its shape does not match
-    ``cfg``'s channel plan.
+    Raises ``ValueError`` when a leaf or subtree is missing or extra, or a
+    shape does not match ``cfg``'s channel plan.
     """
     enc = encoder_features(cfg)
     bneck = bottleneck_features(cfg)
+    plan = attention_plan(cfg)
+    _keys(tree, ("encoder", "bottleneck", "decoder") + (("encoder_attn",) if plan["encoder"]
+                                                        else ()), "params")
     encoder: List[List[Dict[str, torch.Tensor]]] = []
     cin = cfg.in_channels
     for d, f in enumerate(enc):
@@ -155,18 +213,30 @@ def params_from_jax(tree: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
     decoder = []
     for u, ch in enumerate(decoder_channels(cfg)):
         st = tree["decoder"][u]
+        spec = plan["decoder"].get(u)
+        _keys(st, ("up", "blocks", "seg") + ((spec["kind"],) if spec else ()), f"decoder/{u}")
         n = len(st["blocks"])
         chans = [(2 * ch["skip"], ch["skip"])] + [(ch["skip"], ch["skip"])] * (n - 2)
         chans.append((ch["skip"], ch["out"]))
-        decoder.append({
+        stage = {
             "up": {"w": _tensor(st["up"]["w"], (ch["from_down"], *cfg.pool_kernel, ch["skip"]),
                                 f"decoder/{u}/up/w")},
             "blocks": [_block(blk, ci, co, cfg, f"decoder/{u}/blocks/{i}")
                        for i, (blk, (ci, co)) in enumerate(zip(st["blocks"], chans))],
             "seg": {"w": _tensor(st["seg"]["w"], (1, 1, 1, ch["out"], cfg.num_classes),
                                  f"decoder/{u}/seg/w")},
-        })
-    return {"encoder": encoder, "bottleneck": bottleneck, "decoder": decoder}
+        }
+        if spec:
+            stage[spec["kind"]] = _attention_subtree(st[spec["kind"]], spec, cfg,
+                                                     f"decoder/{u}/{spec['kind']}")
+        decoder.append(stage)
+    out = {"encoder": encoder, "bottleneck": bottleneck, "decoder": decoder}
+    if plan["encoder"]:
+        _keys(tree["encoder_attn"], [str(d) for d in plan["encoder"]], "encoder_attn")
+        out["encoder_attn"] = {
+            str(d): _attention_subtree(tree["encoder_attn"][str(d)], s, cfg, f"encoder_attn/{d}")
+            for d, s in plan["encoder"].items()}
+    return out
 
 
 def _numpy(t) -> np.ndarray:
@@ -192,6 +262,6 @@ def params_to_jax(params: Mapping[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
             return [walk(v) for v in node]
         return _numpy(node)
 
-    tree = walk({k: params[k] for k in ("encoder", "bottleneck", "decoder")})
-    params_from_jax(tree, cfg)  # raises on a missing leaf or a shape off the channel plan
+    tree = walk(params)
+    params_from_jax(tree, cfg)  # raises on a missing or extra leaf or a shape off the plan
     return tree

@@ -4,6 +4,9 @@
         --checkpoints results/trained_synth/checkpoints --folds 2
     python -m braintpu_torch.cli segment --input CASE_DIR --output OUT \\
         --checkpoints results/trained_synth/checkpoints --models model1,model2 --folds 2
+    python -m braintpu_torch.cli segment --input CASES --output OUT --batch-cases 2 ...
+    python -m braintpu_torch.cli segment --input CASE_DIR --output OUT --models axial \\
+        --folds 1 --random-weights
     python -m braintpu_torch.cli evaluate --pred OUT/CASE.nii.gz --gt CASE_seg.nii.gz
     python -m braintpu_torch.cli features --input CASE_DIR --segmentation SEG --output DIR
     python -m braintpu_torch.cli report --summary DIR/llm_ready_summary.json
@@ -24,10 +27,12 @@
     python -m braintpu_torch.cli convert-checkpoint --input nnUNet_results --output ckpts
 
 The subcommands and flags follow ``braintpu/cli.py`` for what the port has
-(model1 and model2, checkpoints as npz folds, nnU-Net ``.model`` files or a
-raw nnU-Net results tree, ``--random-weights``, ``--mode
-{sliding,fullconv}`` with fullconv as the default for these models, as the
-reference's ``load_engine`` chooses, ``--ensemble {softmax,label}``), plus
+(``--models`` from model1, model2, axial and axial-full, checkpoints as npz
+folds, nnU-Net ``.model`` files or a raw nnU-Net results tree,
+``--random-weights``, ``--mode {sliding,fullconv}`` with fullconv as the
+default unless an axial model is selected, as the reference's
+``load_engine`` chooses, ``--ensemble {softmax,label}``, ``segment
+--batch-cases N``), plus
 ``--device`` on the commands that build an engine or a vector store: the
 card by default, ``cpu`` only when asked for.  One deliberate change:
 ``serve`` exits non-zero when its warm-up fails (the reference prints that
@@ -61,20 +66,31 @@ def load_engine(args):
     twice draws the same folds twice).  The label convention is
     ``--convention`` where the subcommand has it, else internal labels (the
     pipeline converts in its own stage).  Without ``--mode`` the engine runs
-    fullconv: the reference's default for non-axial models (the port has no
-    axial model), while ``InferenceEngine`` itself defaults to sliding.
-    Prints, per model, which folds were loaded and which were drawn.
+    fullconv, unless an axial model is selected: then sliding (their
+    positional embeddings are bound to the patch shape), as the reference's
+    ``load_engine`` chooses; ``--mode fullconv`` with an axial model exits
+    with the reference's message.  ``InferenceEngine`` itself defaults to
+    sliding.  Prints, per model, which folds were loaded and which were
+    drawn, and the engine's mode.
     """
     from .ckpt.convert import convert_torch_checkpoint
     from .ckpt.npz import load_pytree_npz, params_from_jax
     from .infer.engine import InferenceEngine, ModelBundle
-    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
+    from .models.unet3d import init_params
 
-    configs = {"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE}
+    configs = _model_configs()
     selected = [n.strip() for n in args.models.split(",") if n.strip()]
     unknown = [n for n in selected if n not in configs]
     if unknown:
         raise SystemExit(f"unknown model(s) {unknown}; choose from {sorted(configs)}")
+    axial_selected = [n for n in selected if configs[n].axial_attention]
+    if args.mode is None:
+        args.mode = "sliding" if axial_selected else "fullconv"
+    elif args.mode == "fullconv" and axial_selected:
+        raise SystemExit(
+            f"--mode fullconv is incompatible with axial models "
+            f"{axial_selected} (patch-shape-bound positional embeddings); "
+            "use --mode sliding")
     nnunet_tree = None  # a raw nnU-Net results tree, discovered at first need
 
     def nnunet_fold(name: str, f: int):
@@ -120,15 +136,24 @@ def load_engine(args):
                                  f"{args.checkpoints!r}; pass --random-weights for a dry run")
         print(f"# {name}: folds loaded {loaded or 'none'}; random {drawn or 'none'}", flush=True)
         bundles.append(ModelBundle.from_folds(cfg, fold_params, name=name))
+    print(f"# engine: mode {args.mode}, ensemble {args.ensemble}, tta {not args.no_tta}",
+          flush=True)
     return InferenceEngine(
         models=bundles,
         tta=not args.no_tta,
         ensemble=args.ensemble,
-        mode=args.mode or "fullconv",
+        mode=args.mode,
         et_min_voxels=0 if args.no_et_postprocess else 200,
         output_convention=getattr(args, "convention", None) or "internal",
         device=args.device,
     )
+
+
+def _model_configs():
+    from .models.unet3d import AXIAL_UNET, AXIAL_UNET_FULL, MODEL1_BN, MODEL2_GN_LARGE
+
+    return {"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE, "axial": AXIAL_UNET,
+            "axial-full": AXIAL_UNET_FULL}
 
 
 def cmd_segment(args) -> int:
@@ -140,8 +165,19 @@ def cmd_segment(args) -> int:
     engine = load_engine(args)
     out = Path(args.output)
     out.mkdir(parents=True, exist_ok=True)
+    # the path is decided once, so the mode check fires before the warm-up
+    # and the warm-up runs the batch shape the run will use
+    use_batched = args.batch_cases > 0 and len(cases) > 1
+    if use_batched and engine.mode != "fullconv":
+        raise SystemExit("--batch-cases requires --mode fullconv")
     if args.warmup:
-        print(f"# warmup: {engine.warmup():.1f}s")
+        print(f"# warmup: {engine.warmup(batch_size=args.batch_cases if use_batched else 0):.1f}s")
+    if use_batched:
+        for _, info in engine.predict_cases_batched(cases, output_dir=out,
+                                                    batch_size=args.batch_cases):
+            print(f"{info['case_id']}: batch of {info['batch_size']} in "
+                  f"{info['batch_seconds']:.1f}s  volumes={info['volumes_cm3']}")
+        return 0
     # the next case decodes on a host thread while the device segments this one
     for case, loaded in CasePrefetcher(cases):
         seg, info = engine.predict_case(case, out / f"{case.case_id}.nii.gz", loaded=loaded)
@@ -403,17 +439,15 @@ def cmd_train(args) -> int:
     import torch
 
     from .io.brats import find_cases
-    from .models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
+    from .models.unet3d import init_params
     from .train.augment import AugmentConfig
     from .train.data import PatchSampler
     from .train.trainer import TrainConfig, create_train_state, fit
     from .utils.device import resolve_device
 
-    if args.model == "axial":
-        raise SystemExit("--model axial: the axial U-Net is not ported yet (ROADMAP A4)")
     if args.dp_devices > 1:
         raise SystemExit("--dp-devices > 1: data-parallel training is not ported yet (ROADMAP A3)")
-    cfg = {"model1": MODEL1_BN, "model2": MODEL2_GN_LARGE}[args.model]
+    cfg = _model_configs()[args.model]
     if args.patch:
         cfg = dataclasses.replace(cfg, patch_size=tuple(int(v) for v in args.patch.split(",")))
     cases = [c for c in find_cases(args.data) if c.seg_path is not None]
@@ -443,7 +477,8 @@ def _add_engine_args(p, convention_default=None) -> None:
     """The flags that build an engine (see :func:`load_engine`)."""
     p.add_argument("--checkpoints", help="checkpoint root: model{1,2}/fold_N.npz, "
                    "model{1,2}/fold_N/model_final_checkpoint.model, or an nnU-Net results tree")
-    p.add_argument("--models", default="model1,model2", help="comma list: model1,model2")
+    p.add_argument("--models", default="model1,model2",
+                   help="comma list of model1, model2, axial, axial-full")
     p.add_argument("--folds", type=int, default=5)
     if convention_default:
         p.add_argument("--convention", choices=["internal", "brats2025", "brats2021"],
@@ -453,8 +488,9 @@ def _add_engine_args(p, convention_default=None) -> None:
                    help="softmax: mean of the models' region probabilities, then the ET rule; "
                         "label: round(mean of the models' label maps), no ET rule")
     p.add_argument("--mode", choices=["sliding", "fullconv"], default=None,
-                   help="fullconv (default for these models): one whole-volume forward per fold "
-                        "and mirror; sliding: 128^3 patches at 50%% overlap, Gaussian-blended")
+                   help="fullconv (default for non-axial models): one whole-volume forward per "
+                        "fold and mirror; sliding (default for axial models): 128^3 patches at "
+                        "50%% overlap, Gaussian-blended")
     p.add_argument("--no-et-postprocess", action="store_true")
     p.add_argument("--random-weights", action="store_true",
                    help="random init for folds without a checkpoint (demo/bench)")
@@ -485,8 +521,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("segment", help="ensemble segmentation only")
     p.add_argument("--input", required=True, help="case folder (or a root of case folders)")
     p.add_argument("--output", required=True)
+    p.add_argument("--batch-cases", type=int, default=0,
+                   help="batch N cases of one bucket through whole-volume inference "
+                        "together (fullconv mode only)")
     p.add_argument("--warmup", action="store_true",
-                   help="run one dummy case of the standard bucket before the first case")
+                   help="run one dummy case of the standard bucket (at the batch shape with "
+                        "--batch-cases) before the first case")
     # standalone segment saves BraTS-2025 labels by default (the pipeline
     # keeps internal labels and converts in its own stage)
     _add_engine_args(p, convention_default="brats2025")

@@ -19,13 +19,21 @@ and one of two ensembles,
 
 then uncrop, the output label convention and per-region volumes.
 
+The axial families (``models.unet3d.AXIAL_UNET`` / ``AXIAL_UNET_FULL``) run
+in sliding mode only (fullconv refuses them, as in the reference), with the
+reference's mirror chunk of 8.
+
+:meth:`InferenceEngine.predict_cases_batched` runs several cases of one
+bucket through the fullconv ensemble at once, on one card.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no card and no CPU request it raises.  Multi-case batching, meshes and
-spatial sharding are not ported yet.
+no card and no CPU request it raises.  Meshes and spatial sharding are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -41,7 +49,7 @@ from ..labels.postprocess import et_min_size_postprocess
 from ..models.unet3d import UNetConfig, fold_batchnorm
 from ..pre.preprocess import preprocess_case
 from ..utils.device import resolve_device
-from .fullconv import predict_probs_fullconv
+from .fullconv import fullconv_predict, predict_probs_fullconv
 from .sliding_window import predict_probs, region_probs_to_labels
 
 __all__ = ["ModelBundle", "InferenceEngine", "calculate_volumes", "uncrop_labels", "resolve_device"]
@@ -159,12 +167,24 @@ class InferenceEngine:
         self.device = resolve_device(self.device)
         self.models = [m.to(self.device) for m in self.models]
 
-    def warmup(self, bucket_shape: Tuple[int, int, int] = (192, 192, 160)) -> float:
+    def warmup(self, bucket_shape: Tuple[int, int, int] = (192, 192, 160),
+               batch_size: int = 0) -> float:
         """Run one dummy case of ``bucket_shape`` in the engine's mode
-        (first-use costs: kernel build, cuDNN plans, allocator growth).
-        Returns seconds spent."""
+        (first-use costs: kernel build, cuDNN plans, allocator growth).  With
+        ``batch_size`` (fullconv) it runs the batch :meth:`predict_cases_batched`
+        runs instead.  Returns seconds spent."""
         t0 = time.perf_counter()
-        self.predict_case_array(np.ones((4,) + tuple(bucket_shape), np.float32))
+        # fully nonzero, so the crop keeps the whole bucket
+        dummy = np.ones((4,) + tuple(bucket_shape), np.float32)
+        if batch_size > 0 and self.mode == "fullconv":
+            div = max(2**m.cfg.num_pool for m in self.models)
+            pre = preprocess_case(dummy, patch_size=(div,) * 3, pad_multiple=div,
+                                  device=self.device)
+            self._batched_fullconv(pre.data.movedim(0, -1)[None], self._batch_target(batch_size))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        else:
+            self.predict_case_array(dummy)
         return time.perf_counter() - t0
 
     def predict_case_array(self, data_cxyz: np.ndarray) -> Tuple[np.ndarray, Dict[str, Any]]:
@@ -229,6 +249,139 @@ class InferenceEngine:
         et_label = 4 if self.output_convention == "brats2021" else 3
         conv = "internal" if self.output_convention == "internal" else "brats"
         return calculate_volumes(seg, voxel_cm3, et_label, conv)
+
+    def _batch_target(self, batch_size: int) -> int:
+        """The fixed batch of :meth:`predict_cases_batched` (no mesh yet:
+        ``batch_size`` itself)."""
+        return batch_size
+
+    def _batched_fullconv(self, vols: torch.Tensor, target: int) -> List[torch.Tensor]:
+        """Every model's (B, X, Y, Z, K) probabilities for a (b, X, Y, Z, C)
+        case batch padded to ``target`` rows with copies of its last case, as
+        the reference pads to keep one program per bucket (here it keeps one
+        batch shape, and so one set of launch shapes, per bucket).  The
+        padded rows are the caller's to drop."""
+        n_pad = target - vols.shape[0]
+        if n_pad > 0:
+            vols = torch.cat([vols, vols[-1:].expand(n_pad, *vols.shape[1:])])
+        return [fullconv_predict(m.fold_params, vols, m.cfg, num_mirror=8 if self.tta else 1,
+                                 folded=m.folded) for m in self.models]
+
+    def predict_cases_batched(
+        self, cases: List[BratsCase], output_dir: Optional[Path] = None,
+        batch_size: int = 4, max_pending: Optional[int] = None,
+        keep_volumes: Optional[bool] = None,
+    ) -> List[Tuple[Optional[np.ndarray], Dict[str, Any]]]:
+        """Multi-case segmentation on one card, in fullconv mode.
+
+        Cases stream in through a :class:`~braintpu_torch.io.brats.CasePrefetcher`
+        (decode on a host thread), are grouped by padded bucket shape and run
+        through the whole-volume ensemble ``batch_size`` at a time, each
+        batch padded with copies of its last case to one fixed batch shape
+        (padded rows dropped).  At most ``max_pending`` preprocessed cases
+        (default ``min(max(2 * batch_size, 8), 16)``) wait on the device;
+        when the cap is hit the fullest bucket runs as a partial batch.
+        GroupNorm statistics stay per sample, so each case's labels are its
+        per-case call's (up to ``conv_stage``'s atomic summation order).
+
+        One batch is in flight while the host drains the previous one.  The
+        reference gets that from its runtime's asynchronous dispatch; here each
+        batch's forwards run on a side CUDA stream with an event recorded
+        after them, and the previous batch's labels are computed on a second
+        stream that waits for its event, so its label painting, copy to the
+        host, ET rule, uncrop and NIfTI save overlap the next batch's
+        forwards (one Python thread launches both).  On the CPU the batches
+        simply run in turn.
+
+        With ``output_dir`` the segmentations are written there and, unless
+        ``keep_volumes`` is True, the returned entries are ``(None, info)``;
+        without it the volumes are always returned.  Results come back in
+        the order of ``cases``.
+        """
+        if keep_volumes is None:
+            keep_volumes = output_dir is None
+        if self.mode != "fullconv":
+            raise ValueError("predict_cases_batched requires mode='fullconv'")
+        div = max(2**m.cfg.num_pool for m in self.models)
+        if max_pending is None:
+            max_pending = min(max(2 * batch_size, 8), 16)
+        target = self._batch_target(batch_size)
+        cuda = self.device.type == "cuda"
+        compute = torch.cuda.Stream(self.device) if cuda else None
+        drain = torch.cuda.Stream(self.device) if cuda else None
+
+        def on(stream):
+            return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+        results: List[Optional[Tuple[Optional[np.ndarray], Dict[str, Any]]]] = [None] * len(cases)
+        pending: Dict[Tuple[int, ...], list] = {}  # bucket -> [(i, case, affine, zooms, pre)]
+        n_pending = 0
+        inflight: list = []  # [(chunk, per-model probabilities, done event, t0)]
+
+        def dispatch(shape) -> None:
+            nonlocal n_pending
+            entries = pending.pop(shape)
+            n_pending -= len(entries)
+            for start in range(0, len(entries), batch_size):
+                chunk = entries[start:start + batch_size]
+                t0 = time.perf_counter()
+                done = None
+                if cuda:
+                    # the batch reads what preprocess wrote on the current stream
+                    compute.wait_stream(torch.cuda.current_stream(self.device))
+                    for e in chunk:
+                        e[4].data.record_stream(compute)
+                with on(compute):
+                    vols = torch.stack([e[4].data.movedim(0, -1) for e in chunk])
+                    per_model = self._batched_fullconv(vols, target)
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(compute)
+                inflight.append((chunk, per_model, done, t0))
+                while len(inflight) > 1:
+                    drain_one()
+
+        def drain_one() -> None:
+            chunk, per_model, done, t0 = inflight.pop(0)
+            if done is not None:
+                done.synchronize()
+            device_span = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            with on(drain):
+                if done is not None:
+                    drain.wait_event(done)
+                for bi, (i, case, affine, zooms, pre) in enumerate(chunk):
+                    seg_internal = self._ensemble_labels([p[bi] for p in per_model], pre)
+                    out = self._to_output_convention(seg_internal, pre)
+                    info = {"case_id": case.case_id, "batch_seconds": device_span,
+                            "batch_size": len(chunk), "volumes_cm3": self._case_volumes(out, zooms)}
+                    if output_dir is not None:
+                        path = Path(output_dir) / f"{case.case_id}.nii.gz"
+                        nifti.save(out.astype(np.uint8), path, affine=affine)
+                        info["output_path"] = str(path)
+                    info["ensemble_host_s"] = time.perf_counter() - t1
+                    results[i] = (out if keep_volumes else None, info)
+                if drain is not None:
+                    drain.synchronize()  # the probabilities are freed after this
+
+        from ..io.brats import CasePrefetcher
+
+        for i, (case, (data, affine, zooms)) in enumerate(CasePrefetcher(cases, depth=2)):
+            pre = preprocess_case(data, patch_size=(div,) * 3, pad_multiple=div,
+                                  device=self.device)
+            del data  # the raw decode; ``pre`` holds the cropped copy
+            shape = tuple(pre.data.shape)
+            pending.setdefault(shape, []).append((i, case, affine, zooms, pre))
+            n_pending += 1
+            if len(pending[shape]) >= batch_size:
+                dispatch(shape)
+            elif n_pending >= max_pending:
+                dispatch(max(pending, key=lambda s: len(pending[s])))
+        for shape in sorted(pending, key=lambda s: -len(pending[s])):
+            dispatch(shape)
+        while inflight:
+            drain_one()
+        return [r for r in results if r is not None]
 
     def predict_case(
         self,

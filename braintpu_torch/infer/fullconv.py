@@ -10,6 +10,9 @@ every fold runs one forward per mirror flip over the whole volume.  The
 reference's ``lax.scan``s over flips and folds are Python loops here that
 accumulate sigmoid region probabilities into one f32 tensor on the device,
 in the reference's order (folds summed within a flip, flipped back, added).
+
+The axial-attention families have positional embeddings bound to the patch
+shape and are refused here, as in the reference: they run in sliding mode.
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ def fullconv_predict(
       (X, Y, Z, K) f32 sigmoid probabilities averaged over folds x mirrors,
       or (B, X, Y, Z, K) for a batch (each case's own, as its single call).
     """
+    if cfg.axial_attention:
+        raise ValueError(
+            "fullconv mode is incompatible with the axial-attention variant "
+            "(patch-shape-bound positional embeddings); use sliding-window")
     squeeze = volume.dim() == 4
     x = volume[None] if squeeze else volume
     div = 2**cfg.num_pool

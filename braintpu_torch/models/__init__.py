@@ -1,1 +1,3 @@
-"""Network definitions; this slice ports the folded-BN 3D U-Net forward."""
+"""Network definitions: the nnU-Net U-Nets (``unet3d``; the KAIST models and
+the axial families), axial attention (``axial``), the modular U-Net
+(``modular_unet``) and nnU-Net plans ingestion (``plans``)."""

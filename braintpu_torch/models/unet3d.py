@@ -28,6 +28,14 @@ Two inference forwards:
 Both forwards send their bf16 2x2x2 up-convs to the Hopper kernel
 ``ops.upconv.upconv2x`` and end in the 1x1x1 seg head (f32 logits).
 
+The **axial families** (``AXIAL_UNET``, ``AXIAL_UNET_FULL``; BatchNorm
+U-Nets with axial attention, :mod:`.axial`) run the blocks forward below
+in every mode, folded or not: their convs take the same dispatch as
+MODEL1_BN (the band on the tap kernel, LeakyReLU fused when folded), their
+up-convs ``upconv2x``, and the attention sits where
+:func:`attention_plan` puts it.  :func:`apply_unet` raises when a tree's
+attention subtrees are not exactly there.
+
 The **training forward** (``apply_unet(train=True)``, and any forward that
 returns the deep-supervision heads or keeps the norms of an unfolded
 BatchNorm model) follows the reference's ``_block_apply``: conv, then
@@ -52,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv3d import conv3d_tap_merged, kernel_supported
+from .axial import apply_axial_attention, apply_axial_block, init_axial_block, init_axial_params
 from ..ops.stage import conv_stage, stage_supported
 from ..ops.upconv import upconv2x, upconv2x_ref, upconv_supported
 
@@ -59,6 +68,9 @@ __all__ = [
     "UNetConfig",
     "MODEL1_BN",
     "MODEL2_GN_LARGE",
+    "AXIAL_UNET",
+    "AXIAL_UNET_FULL",
+    "attention_plan",
     "encoder_features",
     "bottleneck_features",
     "decoder_channels",
@@ -99,6 +111,22 @@ class UNetConfig:
     #: encoder stages whose convs take channel-wise dropout in training
     dropout_levels: Tuple[int, ...] = (4,)
     dropout_rate: float = 0.0
+    #: Axial attention (the reference's Axial_UNet extras).  "decoder": the
+    #: Generic_UNet option, sequential per-axis attention residually after
+    #: each up-conv, ``no_attention_levels`` indexed by decoder stage u
+    #: (0 = deepest), heads and dim_head scaled by 2**d.  "full": the
+    #: Axial_UNet family, AxialAttention3D blocks (positional embedding,
+    #: summed per-axis attention, BatchNorm, LeakyReLU) after every encoder
+    #: stage and every decoder up-conv, ``no_attention_levels`` indexed by
+    #: resolution level d (0 = finest), heads and dim_head scaled by 2**d.
+    axial_attention: bool = False
+    attn_heads: int = 8
+    attn_dim_head: int = 32
+    no_attention_levels: Tuple[int, ...] = (0,)
+    axial_mode: str = "decoder"
+    axial_bn: bool = True
+    axial_sum_out: bool = True
+    axial_residual: bool = False
 
     @property
     def name(self) -> str:
@@ -112,6 +140,12 @@ class UNetConfig:
 MODEL1_BN = UNetConfig(norm="batch", encoder_scale=1)
 #: KAIST model 2: ..._largeUnet_Groupnorm (GroupNorm, double-width encoder).
 MODEL2_GN_LARGE = UNetConfig(norm="group", encoder_scale=2)
+#: Axial-attention decoder variant (Generic_UNet ``axial_attention=True``).
+AXIAL_UNET = UNetConfig(norm="batch", encoder_scale=1, axial_attention=True)
+#: Full Axial_UNet family: encoder and decoder AxialAttention3D blocks
+#: (the reference's defaults heads=2, dim_heads=8).
+AXIAL_UNET_FULL = UNetConfig(norm="batch", encoder_scale=1, axial_attention=True,
+                             axial_mode="full", attn_heads=2, attn_dim_head=8)
 
 
 def encoder_features(cfg: UNetConfig) -> List[int]:
@@ -267,11 +301,67 @@ def _init_block(rng: np.random.Generator, cin: int, cout: int, cfg: UNetConfig):
     return block
 
 
+def attention_plan(cfg: UNetConfig) -> Dict[str, Dict[int, Dict[str, Any]]]:
+    """Where an axial config's attention sits: ``{"encoder": {d: spec},
+    "decoder": {u: spec}}`` (empty for a plain U-Net).  A spec is ``{"kind":
+    "attn_block" | "attn", "channels", "shape" (the feature map's D, H, W at
+    ``cfg.patch_size``), "heads" (at initialisation), "dim_head"}``.
+
+    "full": a block after encoder level d and after the up-conv of decoder
+    stage u (level ``d = num_pool - u - 1``), unless d is in
+    ``no_attention_levels``; heads and dim_head scaled by ``2**d``.
+    "decoder": a residual attention after the up-conv of stage u unless u is
+    in ``no_attention_levels``, heads and dim_head scaled by ``2**d`` and the
+    heads halved until ``heads * dim_head <= 2 * skip`` (the reference's cap
+    at initialisation; a converted checkpoint keeps its own head count).
+    """
+    plan: Dict[str, Dict[int, Dict[str, Any]]] = {"encoder": {}, "decoder": {}}
+    if not cfg.axial_attention:
+        return plan
+    P = cfg.num_pool
+    full = cfg.axial_mode == "full"
+
+    def spec(kind, channels, d, heads):
+        return {"kind": kind, "channels": channels,
+                "shape": tuple(int(s // (2**d)) for s in cfg.patch_size),
+                "heads": heads, "dim_head": cfg.attn_dim_head * (2**d)}
+
+    if full:
+        for d, f in enumerate(encoder_features(cfg)):
+            if d not in cfg.no_attention_levels:
+                plan["encoder"][d] = spec("attn_block", f, d, cfg.attn_heads * (2**d))
+    for u, ch in enumerate(decoder_channels(cfg)):
+        d = P - u - 1
+        if full and d not in cfg.no_attention_levels:
+            plan["decoder"][u] = spec("attn_block", ch["skip"], d, cfg.attn_heads * (2**d))
+        elif not full and u not in cfg.no_attention_levels:
+            heads = cfg.attn_heads * (2**d)
+            while heads * cfg.attn_dim_head * (2**d) > 2 * ch["skip"] and heads > 1:
+                heads //= 2
+            plan["decoder"][u] = spec("attn", ch["skip"], d, heads)
+    return plan
+
+
 def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
-    """Random f32 parameters from an int seed: the same leaves, bit for bit,
-    as the reference's ``init_params(cfg, seed)`` (a numpy Generator of the
-    seed, drawn in the same order)."""
+    """Random f32 parameters from an int seed.
+
+    The conv leaves are the reference's ``init_params(cfg, seed)`` bit for
+    bit (a numpy Generator of the seed, drawn in the same order).  An axial
+    config's attention leaves (:func:`attention_plan`) come from a second
+    numpy Generator of ``(seed, 1)``, in the reference's order (encoder
+    levels, then decoder stages); the reference draws them from
+    its own random keys, so their values differ from its.
+    """
     rng = np.random.default_rng(int(seed))
+    attn_rng = np.random.default_rng((int(seed), 1))
+    plan = attention_plan(cfg)
+
+    def attention(s):
+        if s["kind"] == "attn_block":
+            return init_axial_block(attn_rng, s["channels"], s["shape"], s["heads"],
+                                    s["dim_head"], bn=cfg.axial_bn)
+        return init_axial_params(attn_rng, s["channels"], s["shape"], s["heads"], s["dim_head"])
+
     enc = encoder_features(cfg)
     bneck = bottleneck_features(cfg)
     encoder = []
@@ -280,12 +370,13 @@ def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
         encoder.append([_init_block(rng, cin if c == 0 else f, f, cfg)
                         for c in range(cfg.conv_per_stage)])
         cin = f
+    encoder_attn = {str(d): attention(s) for d, s in plan["encoder"].items()}
     bottleneck = []
     for _ in range(cfg.conv_per_stage):
         bottleneck.append(_init_block(rng, cin, bneck, cfg))
         cin = bneck
     decoder = []
-    for ch in decoder_channels(cfg):
+    for u, ch in enumerate(decoder_channels(cfg)):
         up_w = _he_init(rng, (ch["from_down"], *cfg.pool_kernel, ch["skip"]), cfg.negative_slope)
         # StackedConvLayers always builds its first block: two decoder convs
         # at least, whatever conv_per_stage (the reference's floor of 2)
@@ -294,8 +385,14 @@ def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
             blocks.append(_init_block(rng, ch["skip"], ch["skip"], cfg))
         blocks.append(_init_block(rng, ch["skip"], ch["out"], cfg))
         seg_w = _he_init(rng, (1, 1, 1, ch["out"], cfg.num_classes), cfg.negative_slope)
-        decoder.append({"up": {"w": up_w}, "blocks": blocks, "seg": {"w": seg_w}})
-    return {"encoder": encoder, "bottleneck": bottleneck, "decoder": decoder}
+        stage = {"up": {"w": up_w}, "blocks": blocks, "seg": {"w": seg_w}}
+        if u in plan["decoder"]:
+            stage[plan["decoder"][u]["kind"]] = attention(plan["decoder"][u])
+        decoder.append(stage)
+    out = {"encoder": encoder, "bottleneck": bottleneck, "decoder": decoder}
+    if encoder_attn:
+        out["encoder_attn"] = encoder_attn
+    return out
 
 
 def fold_batchnorm(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
@@ -303,7 +400,10 @@ def fold_batchnorm(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
 
     ``w' = w * k`` and ``b' = (b - mean) * k + shift`` with
     ``k = scale / sqrt(var + eps)``.  Leaves are upcast to f32 first, so
-    f16-stored checkpoints fold at full precision.
+    f16-stored checkpoints fold at full precision.  Every subtree that is
+    not a conv block (an axial model's ``encoder_attn``, a decoder stage's
+    ``attn`` / ``attn_block``) is kept as it is, its BatchNorm included: the
+    attention blocks normalise in the forward.
     """
     if cfg.norm != "batch":
         raise ValueError("fold_batchnorm requires a BatchNorm model")
@@ -314,10 +414,12 @@ def fold_batchnorm(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
         return {"w": blk["w"] * k, "b": (blk["b"] - blk["mean"]) * k + blk["shift"]}
 
     return {
+        **{k: v for k, v in params.items() if k not in ("encoder", "bottleneck", "decoder")},
         "encoder": [[fold_block(b) for b in stage] for stage in params["encoder"]],
         "bottleneck": [fold_block(b) for b in params["bottleneck"]],
         "decoder": [
             {
+                **{k: v for k, v in stage.items() if k not in ("up", "blocks", "seg")},
                 "up": {"w": stage["up"]["w"].float()},
                 "blocks": [fold_block(b) for b in stage["blocks"]],
                 "seg": {"w": stage["seg"]["w"].float()},
@@ -652,13 +754,27 @@ def _block_apply(x, block, cfg: UNetConfig, stride, train: bool, folded: bool,
 
 def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, folded: bool,
                        generator: Optional[torch.Generator]):
-    """The reference's non-fused ``apply_unet`` body: returns the final
-    head's logits, or ``(heads full-resolution first, new_stats)``."""
+    """The reference's non-fused ``apply_unet`` body, axial branches
+    included: returns the final head's logits, or ``(heads full-resolution
+    first, new_stats)``.  With ``folded`` (a folded BatchNorm model) every
+    block is Conv + LeakyReLU: the band on the tap kernel with the slope
+    fused, and the up-convs on ``upconv2x`` unless autograd records."""
     stride1 = (1, 1, 1)
     pool = tuple(cfg.pool_kernel)
     dtype = cfg.compute_dtype
     new_stats: Dict[str, Any] = {"encoder": [], "bottleneck": [], "decoder": []}
     drop = generator if (train and cfg.dropout_rate > 0) else None
+
+    def attn_block(block, h, d: int, key: str, idx: int):
+        # the block's BatchNorm takes its default eps (1e-5), as the reference's
+        out = apply_axial_block(block, h, cfg.attn_dim_head * (2**d), cfg.negative_slope,
+                                cfg.axial_sum_out, cfg.axial_residual, train=train,
+                                bn_momentum=cfg.bn_momentum)
+        if train:
+            out, st = out
+            new_stats.setdefault(key, {})[str(idx)] = st
+        return out.to(dtype)
+
     skips = []
     h = x
     for d, stage in enumerate(params["encoder"]):
@@ -668,6 +784,8 @@ def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, fol
             h, st = _block_apply(h, block, cfg, pool if (d > 0 and c == 0) else stride1, train,
                                  folded, gen)
             stage_stats.append(st)
+        if str(d) in params.get("encoder_attn", {}):
+            h = attn_block(params["encoder_attn"][str(d)], h, d, "encoder_attn", d)
         new_stats["encoder"].append(stage_stats)
         skips.append(h)
     for c, block in enumerate(params["bottleneck"]):
@@ -677,6 +795,14 @@ def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, fol
     last = len(params["decoder"]) - 1
     for u, stage in enumerate(params["decoder"]):
         h = _upconv(h, stage["up"]["w"], dtype)
+        dlev = cfg.num_pool - u - 1
+        if "attn_block" in stage:
+            h = attn_block(stage["attn_block"], h, dlev, "decoder_attn", u)
+        elif "attn" in stage:
+            # dim_head scaled by 2**d as the reference's AxialAttention
+            # (dim_heads * 2**d), so converted checkpoints split heads as trained
+            h = (apply_axial_attention(stage["attn"], h, cfg.attn_dim_head * (2**dlev)) + h
+                 ).to(dtype)
         h = torch.cat([h, skips[-(u + 1)]], dim=-1)
         stage_stats = []
         for block in stage["blocks"]:
@@ -688,6 +814,34 @@ def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, fol
     if heads:
         return [seg_logits[-1]] + seg_logits[:-1][::-1], new_stats
     return seg_logits[-1]
+
+
+def _check_attention(params, cfg: UNetConfig) -> None:
+    """Raise unless the tree's attention subtrees are exactly where
+    :func:`attention_plan` puts them: an axial tree that lost one would
+    otherwise run as a plain U-Net and still give plausible labels."""
+    plan = attention_plan(cfg)
+    enc = set(params.get("encoder_attn", {}))
+    want_enc = {str(d) for d in plan["encoder"]}
+    if enc != want_enc:
+        raise ValueError(f"encoder_attn levels {sorted(enc)} != {sorted(want_enc)} for "
+                         f"{cfg.name} (axial_attention={cfg.axial_attention}, "
+                         f"axial_mode={cfg.axial_mode!r})")
+    blocks = [(f"encoder_attn/{d}", params["encoder_attn"][d]) for d in sorted(enc)]
+    for u, stage in enumerate(params["decoder"]):
+        have = {k for k in ("attn", "attn_block") if k in stage}
+        want = {plan["decoder"][u]["kind"]} if u in plan["decoder"] else set()
+        if have != want:
+            raise ValueError(f"decoder/{u}: attention subtrees {sorted(have)} != {sorted(want)} "
+                             f"for {cfg.name} (axial_attention={cfg.axial_attention}, "
+                             f"axial_mode={cfg.axial_mode!r})")
+        if "attn_block" in stage:
+            blocks.append((f"decoder/{u}/attn_block", stage["attn_block"]))
+    for where, block in blocks:
+        want = {"attn", "bn"} if cfg.axial_bn else {"attn"}
+        if set(block) != want:
+            raise ValueError(f"{where}: attention block keys {sorted(block)} != {sorted(want)} "
+                             f"(axial_bn={cfg.axial_bn})")
 
 
 def _leaves(tree):
@@ -739,30 +893,9 @@ def apply_unet(
     """
     if cfg.norm not in ("batch", "group", "instance"):
         raise ValueError(f"unknown norm {cfg.norm!r}")
+    _check_attention(params, cfg)
     heads = train or deep_supervision
-    if not heads:
-        if cfg.norm != "batch" and not _records(x, *_leaves(params)):
-            return _apply_unet_deferred(params, x, cfg)
-        if cfg.norm == "batch" and folded:
-            return _apply_unet_folded(params, x, cfg)
+    if (not heads and cfg.norm != "batch" and not cfg.axial_attention
+            and not _records(x, *_leaves(params))):
+        return _apply_unet_deferred(params, x, cfg)
     return _apply_unet_blocks(params, x, cfg, train, heads, folded, generator)
-
-
-def _apply_unet_folded(params, x, cfg: UNetConfig) -> torch.Tensor:
-    """Eval-mode forward of a folded BatchNorm U-Net: Conv + LeakyReLU blocks."""
-    stride1 = (1, 1, 1)
-    pool = tuple(cfg.pool_kernel)
-    h = x.to(cfg.compute_dtype)
-    skips = []
-    for d, stage in enumerate(params["encoder"]):
-        for c, block in enumerate(stage):
-            h = _block(h, block, cfg, pool if (d > 0 and c == 0) else stride1)
-        skips.append(h)
-    for c, block in enumerate(params["bottleneck"]):
-        h = _block(h, block, cfg, pool if c == 0 else stride1)
-    for u, stage in enumerate(params["decoder"]):
-        h = _upconv(h, stage["up"]["w"], cfg.compute_dtype)
-        h = torch.cat([h, skips[-(u + 1)]], dim=-1)
-        for block in stage["blocks"]:
-            h = _block(h, block, cfg, stride1)
-    return _seg_head(h, params["decoder"][-1]["seg"]["w"], cfg.compute_dtype)

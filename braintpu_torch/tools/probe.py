@@ -1,6 +1,8 @@
-"""Throughput probe of the port's int8 kernel on the card.
+"""Probes on the card: the port's int8 kernel, and the axial attention's
+chunk budget.
 
     python -m braintpu_torch.tools.probe int8 [--log PATH]
+    python -m braintpu_torch.tools.probe attn [--log PATH]
 
 The port's counterpart of ``tools/tpu_probe.py int8``: the same four shapes
 and block arguments (a square 4096^3 product and three stage-GEMM shapes),
@@ -26,6 +28,16 @@ least time the card could take: the larger of the bytes (operands read
 once, result written once) at 3.35 TB/s and the operations at 1,979 TOP/s
 dense int8 (H100 SXM data sheet).
 
+``attn`` times ``models.axial.apply_axial_attention`` at the sliding
+engine's attention shapes (a mirror chunk of 8 copies of each 128^3 / 64^3
+feature map that ``AXIAL_UNET`` and ``AXIAL_UNET_FULL`` attend, bf16, random
+parameters from a fixed seed) under each logit budget of
+:data:`ATTN_BUDGETS_MIB`: one JSON line per stage with the CUDA-event ms
+(mean of 3 after a warm-up), the peak device memory above the inputs and
+the largest difference from the output at the smallest budget (the chunking
+must not change a bit) per budget.  The module's budget
+(``models.axial._MAX_LOGIT_BYTES``) is the one these lines favour.
+
 It writes nothing unless ``--log PATH`` is given, which appends the lines to
 PATH.  It needs a CUDA card and exits non-zero without one.
 """
@@ -42,8 +54,12 @@ import torch
 
 from ..ops.int8_probe import int8_matmul, int8_matmul_ref, int8_route
 
-__all__ = ["INT8_SHAPES", "RAGGED_SHAPES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "cuda_ms",
-           "device_ms", "int8_bound_ms", "measure_int8", "run_int8", "main"]
+__all__ = ["ATTN_BUDGETS_MIB", "INT8_SHAPES", "RAGGED_SHAPES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S",
+           "cuda_ms", "device_ms", "int8_bound_ms", "measure_attention", "measure_int8",
+           "run_attn", "run_int8", "main"]
+
+#: logit budgets (MiB of one chunk's f32 logits) the ``attn`` probe compares
+ATTN_BUDGETS_MIB: Tuple[int, ...] = (64, 256, 512, 1024, 2048, 4096, 8192)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM
@@ -184,12 +200,89 @@ def run_int8(log: Optional[str] = None) -> List[Dict[str, object]]:
     return records
 
 
+def measure_attention(model: str, spec: Dict[str, object], batch: int = 8, seed: int = 0,
+                      budgets_mib=ATTN_BUDGETS_MIB) -> Dict[str, object]:
+    """One attention stage (an ``attention_plan`` spec of ``model``) at
+    ``batch`` copies: ms, peak memory and difference per logit budget."""
+    import numpy as np
+
+    from ..models import axial
+
+    C, shape = int(spec["channels"]), tuple(spec["shape"])
+    params = axial.init_axial_params(np.random.default_rng(seed), C, shape, int(spec["heads"]),
+                                     int(spec["dim_head"]))
+    params = {"pos": {k: (v + 0.1).cuda() for k, v in params["pos"].items()},
+              "axes": [{k: v.cuda() for k, v in ax.items()} for ax in params["axes"]]}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, *shape, C), device="cuda", generator=g).bfloat16()
+    summed = spec["kind"] == "attn_block"
+    saved = axial._MAX_LOGIT_BYTES
+    rows = []
+    ref = None
+    try:
+        for mib in budgets_mib:
+            axial._MAX_LOGIT_BYTES = mib * 1024 * 1024
+            with torch.inference_mode():
+                run = lambda: axial.apply_axial_attention(params, x, int(spec["dim_head"]), summed)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = run()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                if ref is None:
+                    ref = out
+                diff = float((out.float() - ref.float()).abs().max().item())
+                del out
+                ms = cuda_ms(run, iters=3, warmup=1)
+            rows.append({"budget_mib": mib, "ms": ms, "peak_bytes": peak, "max_abs_diff": diff})
+    finally:
+        axial._MAX_LOGIT_BYTES = saved
+    inner = params["axes"][0]["out"].shape[0]
+    return {"probe": f"attn:{model}:{spec['kind']}:{'x'.join(map(str, shape))}",
+            "batch": batch, "channels": C, "heads": inner // int(spec["dim_head"]),
+            "dim_head": int(spec["dim_head"]), "summed": summed, "budgets": rows,
+            "fastest_mib": min(rows, key=lambda r: r["ms"])["budget_mib"],
+            "equal_across_budgets": all(r["max_abs_diff"] == 0 for r in rows),
+            "module_budget_mib": saved // (1024 * 1024)}
+
+
+def run_attn(log: Optional[str] = None) -> List[Dict[str, object]]:
+    """Every attention stage at 128^3 or 64^3 of the two axial configs."""
+    from ..models.unet3d import AXIAL_UNET, AXIAL_UNET_FULL, attention_plan
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: no CUDA device; the attention probe measures the card only")
+    card = _card()
+    records = []
+    for model, cfg in (("axial", AXIAL_UNET), ("axial-full", AXIAL_UNET_FULL)):
+        plan = attention_plan(cfg)
+        specs = list(plan["decoder"].values()) + list(plan["encoder"].values())
+        seen = set()
+        for spec in specs:
+            key = (spec["kind"], spec["shape"], spec["channels"])
+            if spec["shape"][0] < 64 or key in seen:
+                continue
+            seen.add(key)
+            rec = {**measure_attention(model, spec), "device": card}
+            line = json.dumps(rec)
+            print(line, flush=True)
+            if log:
+                with open(log, "a") as f:
+                    f.write(line + "\n")
+            records.append(rec)
+            torch.cuda.empty_cache()
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="braintpu_torch.tools.probe", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("probe", choices=["int8"])
+    ap.add_argument("probe", choices=["int8", "attn"])
     ap.add_argument("--log", metavar="PATH", help="append the JSON lines to PATH")
     args = ap.parse_args(argv)
+    if args.probe == "attn":
+        return 0 if all(r["equal_across_budgets"] for r in run_attn(args.log)) else 1
     records = run_int8(args.log)
     return 0 if all(r["ok"] for r in records) else 1
 

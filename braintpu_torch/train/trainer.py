@@ -12,7 +12,9 @@ training forward.
   ``add_decayed_weights`` followed by ``sgd(nesterov=True)``, both taking the
   first update at ``base_lr`` (:func:`poly_lr` gives optax's
   ``polynomial_schedule`` at the same update count, in f32).
-* The BatchNorm ``mean`` / ``var`` leaves are buffers outside the optimizer.
+* The BatchNorm ``mean`` / ``var`` leaves (the attention blocks' too) are
+  buffers outside the optimizer; every other leaf, an axial model's
+  attention projections and positional embeddings included, is trained.
   The reference keeps them in its optax tree, where they take weight decay
   and momentum and are then overwritten by ``_merge_bn_stats``: the other
   leaves end the same either way.  :func:`_merge_bn_stats` writes the
@@ -99,27 +101,36 @@ def make_optimizer(params, tc: TrainConfig) -> torch.optim.SGD:
 
 def create_train_state(params: Dict[str, Any], tc: TrainConfig,
                        device: Union[None, str, torch.device] = None) -> TrainState:
-    """A fresh state from parameters at any float dtype: f32 copies on
-    ``device`` (the card unless ``"cpu"`` is asked for), trainable leaves
-    requiring grad, step 0."""
+    """A fresh state from parameters at any float dtype: f32 copies of the
+    whole tree (an axial model's attention included) on ``device`` (the card
+    unless ``"cpu"`` is asked for), trainable leaves requiring grad, step 0."""
     dev = resolve_device(device)
 
     def leaf(t, key):
         t = torch.as_tensor(t).detach().to(dev, torch.float32).clone()
         return t.requires_grad_(key not in _BUFFER_KEYS)
 
-    params = _walk({k: params[k] for k in ("encoder", "bottleneck", "decoder")}, leaf)
+    params = _walk(dict(params), leaf)
     return TrainState(params=params, optimizer=make_optimizer(params, tc), step=0)
 
 
 @torch.no_grad()
 def _merge_bn_stats(params: Dict[str, Any], new_stats: Dict[str, Any]) -> None:
     """Write the training forward's BatchNorm running statistics into the
-    tree, in place (the reference's ``_merge_bn_stats``)."""
+    tree, in place (the reference's ``_merge_bn_stats``): the conv blocks',
+    and an axial model's attention blocks' (``encoder_attn`` /
+    ``decoder_attn`` in ``new_stats``, their BatchNorm under ``"bn"``)."""
     def merge(block, stats):
         if stats is not None and "mean" in block:
             block["mean"].copy_(stats["mean"])
             block["var"].copy_(stats["var"])
+
+    for d, st in (new_stats.get("encoder_attn") or {}).items():
+        merge(params["encoder_attn"][d].get("bn", {}), st)
+    for u, st in (new_stats.get("decoder_attn") or {}).items():
+        stage = params["decoder"][int(u)]
+        if "attn_block" in stage:
+            merge(stage["attn_block"].get("bn", {}), st)
 
     for stage, stats in zip(params["encoder"], new_stats["encoder"]):
         for b, s in zip(stage, stats):

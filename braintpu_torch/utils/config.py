@@ -3,8 +3,9 @@
 The port's copy of ``braintpu/utils/config.py``: the same dataclass tree, the
 same keys, defaults and checks, and the same JSON bytes from
 :func:`save_config`.  ``pipeline_config()`` projects onto the port's
-``PipelineConfig``.  A config may name the ``axial`` model (the reference
-has it); the port's CLI then refuses it as an unknown model.
+``PipelineConfig``.  A config may name the ``axial`` model, as the
+reference's; with the default fullconv mode the CLI then exits with the
+reference's message (axial models run in sliding mode only).
 
 The upstream project scatters its configuration across argparse flags in nine
 scripts, nnU-Net env vars, a pickled plans file, and hard-coded constants

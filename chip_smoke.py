@@ -60,7 +60,25 @@ segments held-out seed 100 with it; phase 11c runs ``python -m
 braintpu_torch.cli train`` as a process twice and checks the resume;
 phase 11d converts a full-width model-1 state dict in nnU-Net naming
 (``convert-checkpoint``) and segments from the ``.model``, a raw nnU-Net
-tree and the npz, which must give the same labels.  Every phase prints its
+tree and the npz, which must give the same labels.  The axial families and
+batching: phase 12 segments seed 50 at 240x240x155 with ``--models axial``
+(AXIAL_UNET at full width, two ``init_params`` folds, 8-flip TTA; sliding,
+the mode ``load_engine`` picks for it): s/case, peak memory, tap and
+``upconv2x`` launches against the dispatch's formula, the attention's share
+of device time (its calls bracketed by CUDA events under torch.profiler),
+finite probabilities, one 128^3 x 8 forward against the same forward with
+every kernel replaced by its plain version (label agreement >= 0.999) and
+one attention stage chunked against unchunked (bit equality); 12b does the
+same for ``axial-full`` with one fold; 12c runs ``cli segment --models
+axial`` as a process (sliding without ``--mode``; ``--mode fullconv`` exits
+with the reference's message); 12d trains AXIAL_UNET at 128^3 x 2 (3
+warm-up and 10 timed steps) and runs ``cli train --model axial`` for 2
+steps; 12e runs phase 8's two-model fullconv engine through
+``predict_cases_batched`` at batch 2 over seeds 50, 55 and 200 (two
+buckets, one padded batch): per-case seconds against serial, peak memory,
+launches against the formula, labels against per-case ``predict_case``
+(>= 0.9999: ``conv_stage`` sums its statistics with atomics), and ``cli
+segment --batch-cases 2`` as a process.  Every phase prints its
 wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
@@ -524,11 +542,12 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") -> None:
+def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") -> dict:
     """Trace ``run()`` with torch.profiler: device time of the kernels (not
     of the host ops that launch them) by name and by category, the device's
     busy share of the wall time (one stream: the sum of kernel times), and,
-    with ``out_dir``, a gzipped Chrome trace there."""
+    with ``out_dir``, a gzipped Chrome trace there.  Returns the record it
+    prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -552,12 +571,12 @@ def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") ->
         name = next((g for g, frags in PROFILE_GROUPS if any(f in key for f in frags)),
                     "elementwise and copies")
         groups[name] += ms
-    print(json.dumps({"profile": {
+    record = {
         "what": what, "wall_s": wall, "device_busy_s": busy_ms / 1e3,
         "device_idle_share": 1 - busy_ms / 1e3 / wall,
         "device_ms_by_category": groups,
-        "top_kernels": [{"ms": ms, "count": n, "name": k[:120]} for ms, n, k in rows[:20]]}}),
-        flush=True)
+        "top_kernels": [{"ms": ms, "count": n, "name": k[:120]} for ms, n, k in rows[:20]]}
+    print(json.dumps({"profile": record}), flush=True)
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     if out_dir is not None:
@@ -567,6 +586,7 @@ def profile_case(torch, run, out_dir: Optional[Path], what: str = "fullconv") ->
         with open(trace, "rb") as src, gzip.open(f"{trace}.gz", "wb") as dst:
             shutil.copyfileobj(src, dst)
         trace.unlink()
+    return record
 
 
 #: the reference's training log of the recipe below (tools/train_synthetic.py, fold 0)
@@ -717,6 +737,44 @@ def nnunet_state_dict(torch, tree, cfg) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
+#: the reference's refusal of ``--mode fullconv`` with an axial model (braintpu/cli.py)
+AXIAL_FULLCONV_EXIT = ("--mode fullconv is incompatible with axial models ['axial'] "
+                       "(patch-shape-bound positional embeddings); use --mode sliding")
+
+
+def attention_profile(torch, run, what: str) -> dict:
+    """``profile_case`` of ``run()`` with every ``apply_axial_attention``
+    call bracketed by CUDA events: the attention's device milliseconds (the
+    events' spans; the attention's kernels fill them, one stream) against
+    the device's busy milliseconds, and the profile's categories."""
+    from braintpu_torch.models import axial, unet3d
+
+    real = axial.apply_axial_attention
+    spans = []
+
+    def timed_attention(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    # the decoder variant calls it from unet3d, the blocks from axial
+    axial.apply_axial_attention = unet3d.apply_axial_attention = timed_attention
+    try:
+        record = profile_case(torch, lambda: (spans.clear(), run()), None, what=what)
+    finally:
+        axial.apply_axial_attention = unet3d.apply_axial_attention = real
+    torch.cuda.synchronize()
+    attn_ms = sum(s.elapsed_time(e) for s, e in spans)
+    busy_ms = record["device_busy_s"] * 1e3
+    return {"attention_calls": len(spans), "attention_device_ms": attn_ms,
+            "device_busy_ms": busy_ms, "attention_share_of_device_time": attn_ms / busy_ms,
+            "device_idle_share": record["device_idle_share"],
+            "device_ms_by_category": record["device_ms_by_category"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -769,7 +827,8 @@ def main() -> int:
     from braintpu_torch.serve import make_server
     from braintpu_torch.tools import probe
     from braintpu_torch.cli import main as cli_main
-    from braintpu_torch.ckpt.npz import load_pytree_npz, params_to_jax, save_pytree_npz
+    from braintpu_torch.ckpt.npz import (load_pytree_npz, params_from_jax, params_to_jax,
+                                         save_pytree_npz)
     from braintpu_torch.train.data import PatchSampler
     from braintpu_torch.train.synthetic import write_synth_case, write_synth_dataset
     from braintpu_torch.train.trainer import TrainConfig, create_train_state, fit
@@ -829,6 +888,10 @@ def main() -> int:
                                         shape=(240, 240, 155))
             third = write_synth_case(tmp / "third", "BraTS-SYN-00051-000", seed=51,
                                      shape=(240, 240, 155))  # phase 8d's third case
+            # phase 12e: seed 55 shares seed 50's fullconv bucket (seeds 50, 51
+            # and 200 fall in three buckets)
+            pair = write_synth_case(tmp / "pair", "BraTS-SYN-00055-000", seed=55,
+                                    shape=(240, 240, 155))
             buckets = {}
             for name, case in (("anchor", anchor), ("brats_size", brats_size),
                                ("flagship_geometry", flagship)):
@@ -1123,7 +1186,9 @@ def main() -> int:
                 raise IOError("the scipy route, for comparison")
 
             secs, summaries = {"native": [], "scipy": []}, {}
-            for i, which in enumerate(("native", "scipy", "scipy", "native")):
+            print("# cut: the feature steps run once per route (four runs in turns before), "
+                  "for the smoke's time")
+            for i, which in enumerate(("native", "scipy")):
                 if which == "scipy" or not native.native_available():
                     native.edt_sq = scipy_route
                 try:
@@ -1553,7 +1618,8 @@ def main() -> int:
                 train_results[name] = train_run(torch, cfg, batches, 3, n_timed, kernels)
                 print(json.dumps({"train": {name: train_results[name]}}), flush=True)
 
-        recipe_steps = 300
+        recipe_steps = 150
+        print(f"# cut: the recipe runs {recipe_steps} steps (300 before), for the smoke's time")
         with phase(f"11b recipe: model 1, 64^3, batch 2, LR 0.01, mirror, {recipe_steps} steps"):
             # tools/train_synthetic.py's recipe (init seed 0, sampler seed 0,
             # its 2500-step schedule), stopped early; then export, segment
@@ -1656,6 +1722,320 @@ def main() -> int:
             if not exact or not all(same.values()):
                 raise AssertionError(f"conversion: exact {exact}, same labels {same}")
 
+        from braintpu_torch.infer.sliding_window import MIRROR_COMBOS
+        from braintpu_torch.models import axial
+        from braintpu_torch.models.unet3d import AXIAL_UNET, AXIAL_UNET_FULL, attention_plan
+        from braintpu_torch.ops.conv3d import conv3d_tap_merged_ref
+        from braintpu_torch.ops.upconv import upconv2x_ref
+
+        def cfg_tap_layers(cfg, bucket, batch):
+            return [(s_, co) for s_, st, co in conv_layers(cfg, bucket, batch)
+                    if choose_impl(s_, (3, 3, 3), st, co, cfg.compute_dtype) == "kernel"]
+
+        def axial_launches(cfg, bucket, folds):
+            """One sliding case: patches x 8/N x folds forwards, each through
+            the dispatch's tap and up-conv layers at (N, 128^3)."""
+            n = default_mirror_chunk(cfg)
+            forwards = len(patch_grid(bucket, patch)) * (8 // n) * folds
+            return {"conv3d_tap_merged": forwards * len(cfg_tap_layers(cfg, patch, n)),
+                    "upconv2x": forwards * len(up_layers(cfg, patch, n))}
+
+        def times_of(eng, case_dir, runs=3):
+            """predict_case seconds of ``runs`` runs (the caller has warmed
+            the engine up) and the peak device memory over them."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                eng.predict_case(find_cases(case_dir)[0])
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return out, torch.cuda.max_memory_allocated()
+
+        def axial_checks(cfg, case_dir):
+            """On one 128^3 patch of the case x 8 mirrors: the forward through
+            the kernels, each launch held against its plain version on the
+            same inputs (within TOL of max|plain|), against the same forward
+            with every kernel replaced by its plain version (label agreement,
+            finite logits, launches), beside the plain forward of an input
+            perturbed by 1e-3 (relative; information: how sensitive the
+            weights are); and one attention stage chunked against unchunked
+            (bit equality).  The weights: model 1's trained fold 0 for the
+            convs (the axial families have model 1's conv plan) and the
+            config's attention from ``init_params(cfg, 0)``.  All-random
+            weights are chaotic at 128^3: a 1e-3 input perturbation flips
+            40 % (AXIAL_UNET) and 22 % (AXIAL_UNET_FULL) of their labels in
+            an f32 CPU forward, so labels cannot hold kernels to their
+            plain versions there."""
+            tree = load_pytree_npz(CKPTS / "model1" / "fold_0.npz")
+            trained = ModelBundle.from_folds(MODEL1_BN, [params_from_jax(tree, MODEL1_BN)])
+            attn = ModelBundle.from_folds(cfg, [init_params(cfg, 0)]).fold_params[0]
+            tp = trained.fold_params[0]
+            params = {**attn, "encoder": tp["encoder"], "bottleneck": tp["bottleneck"],
+                      "decoder": [{**a_st, **t_st} for a_st, t_st in
+                                  zip(attn["decoder"], tp["decoder"])]}
+            params = ModelBundle(cfg, [params], "mixed", True).to(torch.device("cuda")) \
+                .fold_params[0]
+            data, _, _ = load_case_volumes(find_cases(case_dir)[0])
+            pre = preprocess_case(data, patch_size=patch, device=torch.device("cuda"))
+            x0 = pre.data.movedim(0, -1)[:patch[0], :patch[1], :patch[2]]
+            x = torch.stack([torch.flip(x0, [a for a in axes]) for axes in MIRROR_COMBOS])
+            g = torch.Generator(device="cuda").manual_seed(13)
+            xp = x * (1 + 1e-3 * torch.randn(x.shape, device="cuda", generator=g))
+            errs = []
+
+            def held(kernel, plain):
+                def run(*a):
+                    out = kernel(*a)
+                    ref = plain(*a)
+                    err = float((out.float() - ref.float()).abs().max())
+                    tol = TOL * float(ref.float().abs().max())
+                    errs.append((kernel.__name__, tuple(a[0].shape), err, tol))
+                    return out
+                return run
+
+            reset_counts()
+            unet3d.conv3d_tap_merged = held(conv3d_tap_merged, conv3d_tap_merged_ref)
+            unet3d.upconv2x = held(upconv2x, lambda a_, w_: upconv2x_ref(a_, w_, torch.bfloat16))
+            try:
+                with torch.inference_mode():
+                    kern = unet3d.apply_unet(params, x, cfg, folded=True)
+                torch.cuda.synchronize()
+                launched = counts()
+                unet3d.conv3d_tap_merged = conv3d_tap_merged_ref
+                unet3d.upconv2x = lambda a_, w_: upconv2x_ref(a_, w_, torch.bfloat16)
+                with torch.inference_mode():
+                    plain = unet3d.apply_unet(params, x, cfg, folded=True)
+                    perturbed = unet3d.apply_unet(params, xp, cfg, folded=True)
+                torch.cuda.synchronize()
+            finally:
+                unet3d.conv3d_tap_merged, unet3d.upconv2x = conv3d_tap_merged, upconv2x
+            agree = float(((kern > 0) == (plain > 0)).float().mean())
+            finite = bool(torch.isfinite(kern).all() and torch.isfinite(plain).all())
+            want = {"conv3d_tap_merged": len(cfg_tap_layers(cfg, patch, 8)), "conv_stage": 0,
+                    "upconv2x": len(up_layers(cfg, patch, 8))}
+            bad = [e for e in errs if not e[2] <= e[3]]
+            # the attention of the finest attending decoder stage, on a
+            # random bf16 input of its shape at N = 8
+            plan = attention_plan(cfg)["decoder"]
+            u = max(plan)
+            spec = plan[u]
+            a_params = params["decoder"][u][spec["kind"]]
+            a_params = a_params["attn"] if spec["kind"] == "attn_block" else a_params
+            xa = torch.randn((8, *spec["shape"], spec["channels"]), device="cuda",
+                             generator=g).bfloat16()
+            outs = {}
+            saved = axial._MAX_LOGIT_BYTES
+            try:
+                for mib in (64, 8192):
+                    axial._MAX_LOGIT_BYTES = mib << 20
+                    with torch.inference_mode():
+                        outs[mib] = axial.apply_axial_attention(
+                            a_params, xa, spec["dim_head"], spec["kind"] == "attn_block")
+            finally:
+                axial._MAX_LOGIT_BYTES = saved
+            chunk_equal = bool(torch.equal(outs[64], outs[8192]))
+            r = {"patch_forward": {
+                    "weights": "model 1 trained fold 0 convs + init_params(cfg, 0) attention",
+                    "launches": launched, "launches_formula": want,
+                    "launches_held_to_plain": len(errs), "launches_off_tolerance": bad,
+                    "max_abs_err_per_launch": max(e[2] for e in errs),
+                    "label_agreement_kernels_vs_plain": agree,
+                    "label_agreement_plain_vs_perturbed_input": float(
+                        ((perturbed > 0) == (plain > 0)).float().mean()),
+                    "foreground_share": float((plain > 0).float().mean()),
+                    "max_abs_logit_diff": float((kern - plain).abs().max()),
+                    "max_abs_logit": float(plain.abs().max()), "finite": finite},
+                 "chunked_vs_unchunked": {"decoder_stage": u, "shape": [8, *spec["shape"],
+                                                                        spec["channels"]],
+                                          "budgets_mib": [64, 8192], "equal": chunk_equal}}
+            if (launched != want or bad or len(errs) != sum(want.values()) or agree < 0.999
+                    or not finite or not chunk_equal):
+                raise AssertionError(f"axial checks failed: {r}")
+            return r
+
+        axial_counts = {}
+        for name, cfg, folds, ph in (("axial", AXIAL_UNET, 2, "12"),
+                                     ("axial-full", AXIAL_UNET_FULL, 1, "12b")):
+            with phase(f"{ph} {name}: sliding, full width, seed 50, "
+                       f"{folds} fold(s), 8-flip TTA"):
+                eng_a = load_engine(build_parser().parse_args(
+                    ["segment", "--input", str(brats_size), "--output", str(tmp / f"out_{name}"),
+                     "--models", name, "--folds", str(folds), "--random-weights"]))
+                if eng_a.mode != "sliding":
+                    raise AssertionError(f"{name}: load_engine chose {eng_a.mode}, not sliding")
+                # the first case counts launches and checks the probabilities
+                finite = []
+                real_r2l = engine_mod.region_probs_to_labels
+
+                def checking_r2l(p, *a, **kw):
+                    finite.append(bool(torch.isfinite(p).all()))
+                    return real_r2l(p, *a, **kw)
+
+                engine_mod.region_probs_to_labels = checking_r2l
+                try:
+                    reset_counts()
+                    _, info_a, dice_a = segment(eng_a, brats_size)
+                finally:
+                    engine_mod.region_probs_to_labels = real_r2l
+                got = counts()
+                sb = tuple(info_a["bucket_shape"])
+                want = axial_launches(cfg, sb, folds)
+                expect_counts({k: got[k] for k in want}, want,
+                              f"{name}, sliding, {len(patch_grid(sb, patch))} patches")
+                if not finite or not all(finite) or int8_matmul.launches or got["conv_stage"]:
+                    raise AssertionError(f"{name}: probabilities finite {finite}, int8 "
+                                         f"launches {int8_matmul.launches}, launches {got}")
+                secs, peak_a = times_of(eng_a, brats_size)
+                prof_a = attention_profile(torch, lambda: segment(eng_a, brats_size),
+                                           f"{name} sliding")
+                checks_a = axial_checks(cfg, brats_size)
+                axial_counts[name] = got
+                print(json.dumps({"axial_sliding": {
+                    "model": name, "config": "AXIAL_UNET" if name == "axial" else
+                    "AXIAL_UNET_FULL", "case": "BraTS-SYN-00050-000 240x240x155",
+                    "folds": f"{folds} (init_params seeds {list(range(folds))})",
+                    "mirror_chunk": default_mirror_chunk(cfg), "padded_shape": sb,
+                    "patches": len(patch_grid(sb, patch)), "s_per_case": secs,
+                    "s_per_case_min": min(secs), "s_per_case_median": statistics.median(secs),
+                    "max_memory_allocated_bytes": peak_a, "launches": got,
+                    "launches_formula": want, "probabilities_finite": all(finite),
+                    "logit_budget_mib": axial._MAX_LOGIT_BYTES >> 20,
+                    "attention": prof_a, **checks_a, "dice": dice_a,
+                    "note": "Dice is information only: the weights are random"}}), flush=True)
+                del eng_a
+                torch.cuda.empty_cache()
+
+        with phase("12c cli segment --models axial as a process (seed 200)"):
+            torch.cuda.empty_cache()
+            base = [sys.executable, "-u", "-m", "braintpu_torch.cli", "segment", "--input",
+                    str(anchor), "--models", "axial", "--folds", "1", "--random-weights"]
+            t0 = time.perf_counter()
+            out = subprocess.run(base + ["--output", str(tmp / "cli_axial")], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t0
+            written = (tmp / "cli_axial" / "BraTS-SYN-00200-000.nii.gz").is_file()
+            refused = subprocess.run(base + ["--output", str(tmp / "cli_axial_fc"), "--mode",
+                                             "fullconv"], cwd=ROOT, capture_output=True,
+                                     text=True, timeout=600)
+            print(json.dumps({"cli_axial": {
+                "exit_code": out.returncode, "s": cli_s, "written": written,
+                "output": out.stdout.strip().splitlines()[-3:],
+                "fullconv_exit_code": refused.returncode,
+                "fullconv_message": refused.stderr.strip().splitlines()[-1:]}}), flush=True)
+            if (out.returncode != 0 or not written
+                    or "# engine: mode sliding" not in out.stdout):
+                raise AssertionError(f"cli segment --models axial: {out.returncode}\n"
+                                     f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+            if refused.returncode == 0 or AXIAL_FULLCONV_EXIT not in refused.stderr:
+                raise AssertionError(f"--mode fullconv with axial: exit {refused.returncode}, "
+                                     f"{refused.stderr[-1000:]}")
+
+        with phase("12d train AXIAL_UNET (full width, 128^3, batch 2, bf16)"):
+            train_results["axial"] = train_run(torch, AXIAL_UNET, batches, 3, 10, kernels)
+            print(json.dumps({"train": {"axial": train_results["axial"]}}), flush=True)
+            cmd = [sys.executable, "-u", "-m", "braintpu_torch.cli", "train", "--model", "axial",
+                   "--data", str(train_dir), "--checkpoint-dir", str(tmp / "train_axial"),
+                   "--log-every", "1", "--steps", "2"]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            print(json.dumps({"cli_train_axial": {
+                "exit_code": out.returncode, "s": time.perf_counter() - t0,
+                "output": out.stdout.strip().splitlines()[-4:]}}), flush=True)
+            if out.returncode != 0 or "done at step 2" not in out.stdout:
+                raise AssertionError(f"cli train --model axial: {out.returncode}\n"
+                                     f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+        with phase("12e batched two-model fullconv engine (seeds 50, 55, 200; batch 2)"):
+            engine_b = load_engine(build_parser().parse_args(
+                ["segment", "--input", str(brats_size), "--output", str(tmp / "outb"),
+                 "--checkpoints", str(root), "--models", "model1,model2", "--folds", "2",
+                 "--random-weights"]))
+            cases_b = [find_cases(d)[0] for d in (brats_size, pair, flagship)]
+            buckets_b = {}
+            for c in cases_b:
+                buckets_b.setdefault(tuple(bucket_of(c.folder)[1]), []).append(c.case_id)
+            # warm-up: each bucket once per case and once at the batch shape
+            for c in cases_b:
+                engine_b.predict_case(c)
+            engine_b.predict_cases_batched(cases_b, batch_size=2)
+            torch.cuda.synchronize()
+            per_case = {c.case_id: engine_b.predict_case(c)[0] for c in cases_b}
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            batched = engine_b.predict_cases_batched(cases_b, batch_size=2)
+            torch.cuda.synchronize()
+            peak_b = torch.cuda.max_memory_allocated()
+            got_b = counts()
+            want_b = {"conv3d_tap_merged": 0, "conv_stage": 0, "upconv2x": 0}
+            for bucket in buckets_b:  # one batch of 2 per bucket (the lone case padded)
+                want_b["conv3d_tap_merged"] += 16 * len(tap_layers(bucket, 2))
+                want_b["conv_stage"] += 16 * len(stage_layers(bucket, 2))
+                want_b["upconv2x"] += 16 * (len(up_layers(MODEL1_BN, bucket, 2))
+                                            + len(up_layers(MODEL2_GN_LARGE, bucket, 2)))
+            expect_counts(got_b, want_b, f"batched, buckets {sorted(buckets_b)}")
+            agree_b = {i["case_id"]: float((seg == per_case[i["case_id"]]).mean())
+                       for seg, i in batched}
+            # serial against batched, in turns
+            walls = {"serial": [], "batched": []}
+            for which in ("serial", "batched", "batched", "serial"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if which == "serial":
+                    for c in cases_b:
+                        engine_b.predict_case(c)
+                else:
+                    engine_b.predict_cases_batched(cases_b, batch_size=2)
+                torch.cuda.synchronize()
+                walls[which].append(time.perf_counter() - t0)
+            batched_launches = got_b
+            batch_sizes = [i["batch_size"] for _, i in batched]
+            # the process below needs the card's memory: free this one's
+            del engine_b, batched
+            torch.cuda.empty_cache()
+            # cli segment --batch-cases 2 as a process over the same three cases
+            root_b = tmp / "batch_in"
+            root_b.mkdir()
+            for c in cases_b:
+                (root_b / c.case_id).symlink_to(c.folder, target_is_directory=True)
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-u", "-m", "braintpu_torch.cli", "segment", "--input",
+                 str(root_b), "--output", str(tmp / "cli_batched"), "--checkpoints", str(root),
+                 "--models", "model1,model2", "--folds", "2", "--random-weights",
+                 "--batch-cases", "2", "--convention", "brats2025"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            cli_b_s = time.perf_counter() - t0
+            cli_agree = {}
+            if out.returncode == 0:
+                for c in cases_b:
+                    f = tmp / "cli_batched" / f"{c.case_id}.nii.gz"
+                    cli_agree[c.case_id] = float((np.asarray(nifti.load(f).dataobj)
+                                                  == per_case[c.case_id]).mean())
+            serial_case = min(walls["serial"]) / len(cases_b)
+            batched_case = min(walls["batched"]) / len(cases_b)
+            print(json.dumps({"batched": {
+                "cases": [c.case_id for c in cases_b], "buckets": {
+                    "x".join(map(str, b)): ids for b, ids in buckets_b.items()},
+                "engine": "two models, fullconv (phase 8's weights), 8-flip TTA",
+                "batch_size": 2, "batch_sizes": batch_sizes,
+                "serial_s": walls["serial"], "batched_s": walls["batched"],
+                "serial_s_per_case_min": serial_case, "batched_s_per_case_min": batched_case,
+                "batched_over_serial": batched_case / serial_case,
+                "phase8_serial_s_per_case_min_seed50": min(times2),
+                "max_memory_allocated_bytes": peak_b, "launches": got_b,
+                "launches_formula": want_b, "label_agreement_with_per_case": agree_b,
+                "cli": {"exit_code": out.returncode, "s": cli_b_s,
+                        "output": out.stdout.strip().splitlines()[-3:],
+                        "label_agreement_with_per_case": cli_agree}}}), flush=True)
+            if min(agree_b.values()) < 0.9999 or list(agree_b) != [c.case_id for c in cases_b]:
+                raise AssertionError(f"batched labels: {agree_b}")
+            if out.returncode != 0 or len(cli_agree) != 3 or min(cli_agree.values()) < 0.9999:
+                raise AssertionError(f"cli segment --batch-cases 2: {out.returncode} {cli_agree}"
+                                     f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
         return max(at_main, key=lambda r: r["bound_ms"])
@@ -1683,7 +2063,10 @@ def main() -> int:
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"],
             "launches_train_step": {m: train_results[m].get("launches", {}).get(name, 0)
-                                    / train_results[m].get("steps_timed", 1) for m in TRAIN_MODELS},
+                                    / train_results[m].get("steps_timed", 1)
+                                    for m in (*TRAIN_MODELS, "axial")},
+            "launches_axial_sliding": {m: c[name] for m, c in axial_counts.items()},
+            "launches_batched": batched_launches[name],
         })
     cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
     line.append({

@@ -9,6 +9,7 @@ npz, a ``.model`` file or a raw nnU-Net tree and segments the same labels
 from each, and ``convert-checkpoint`` writes the reference's files.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -115,11 +116,16 @@ def test_convert_torch_checkpoint_file_equals_reference(tmp_path):
 
 
 def test_convert_refuses_axial_and_mismatched_checkpoints():
+    """An axial config given a plain state dict (no attention tensors)
+    raises, as the reference's converter does; so does a config whose
+    channel plan differs."""
     jcfg = tiny4("batch", 1)
     sd = make_torch_state_dict(jcfg, seed=5)
-    with pytest.raises(ValueError, match="axial"):
-        convert.convert_state_dict({**sd, "axial_attention.0.to_q.weight": torch.zeros(4, 4)},
-                                   _port_cfg(jcfg))
+    axial_cfg = dataclasses.replace(_port_cfg(jcfg), axial_attention=True)
+    with pytest.raises(KeyError, match="axial"):
+        convert.convert_state_dict(sd, axial_cfg)
+    with pytest.raises(KeyError, match="axial"):
+        jax_convert.convert_state_dict(sd, dataclasses.replace(jcfg, axial_attention=True))
     wide = _port_cfg(tiny4("batch", 2))  # a config whose channel plan differs
     with pytest.raises(ValueError, match="does not match"):
         convert.convert_state_dict(sd, wide)

@@ -289,6 +289,9 @@ def test_pipeline_config_naming_axial_raises_unknown_model(tmp_path, synth_case)
     fc.segmentation.models = ["model1", "axial"]
     path = tmp_path / "cfg.json"
     save_config(fc, path)
-    with pytest.raises(SystemExit, match=r"unknown model\(s\) \['axial'\]"):
+    # the config's default mode is fullconv, which the axial models refuse
+    # with the reference's message
+    with pytest.raises(SystemExit, match=r"--mode fullconv is incompatible with axial models "
+                                         r"\['axial'\]"):
         cli.main(["pipeline", str(synth_case), "--config", str(path), "--device", "cpu",
                   "--random-weights"])

@@ -66,7 +66,9 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
               "braintpu_torch.utils.envcheck", "braintpu_torch.ckpt.convert",
               "braintpu_torch.ckpt.discover", "braintpu_torch.train.augment",
               "braintpu_torch.train.checkpoint", "braintpu_torch.train.data",
-              "braintpu_torch.train.losses", "braintpu_torch.train.trainer"):
+              "braintpu_torch.train.losses", "braintpu_torch.train.trainer",
+              "braintpu_torch.models.axial", "braintpu_torch.models.modular_unet",
+              "braintpu_torch.models.plans"):
         assert m in mods
 
 

@@ -379,8 +379,9 @@ def test_exported_fold_segments_identically_in_both_engines(tmp_path):
 
 def test_cli_train_writes_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     """``cli train --device cpu`` (model 1's config made tiny) runs 2 steps
-    and checkpoints, then resumes to 3; axial and ``--dp-devices`` exit with
-    a message."""
+    and checkpoints, then resumes to 3; ``--model axial`` on the same
+    checkpoint directory refuses model 1's checkpoint, and ``--dp-devices``
+    exits with a message."""
     monkeypatch.setattr(unet3d, "MODEL1_BN", dataclasses.replace(unet3d.MODEL1_BN, **KW))
     synthetic.write_synth_dataset(tmp_path / "data", 2, shape=(40, 36, 32))
     args = ["train", "--data", str(tmp_path / "data"), "--batch-size", "1", "--patch",
@@ -394,7 +395,7 @@ def test_cli_train_writes_checkpoints_and_resumes(tmp_path, monkeypatch, capsys)
     second = capsys.readouterr().out
     assert "step       3" in second and "step       1" not in second
     assert checkpoint.latest_step(tmp_path / "ck") == 3
-    with pytest.raises(SystemExit, match="axial"):
+    with pytest.raises(ValueError, match="architecture mismatch"):
         cli.main(args + ["--model", "axial"])
     with pytest.raises(SystemExit, match="dp-devices"):
         cli.main(args + ["--dp-devices", "2"])
