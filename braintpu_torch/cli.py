@@ -25,6 +25,11 @@
     python -m braintpu_torch.cli convert-checkpoint --input fold_0/model_final_checkpoint.model \
         --output ckpts/model1/fold_0.npz --config model1
     python -m braintpu_torch.cli convert-checkpoint --input nnUNet_results --output ckpts
+    python -m braintpu_torch.cli segment --input CASE_DIR --output OUT --trace-dir TRACE ...
+    python -m braintpu_torch.cli profile-report TRACE [--line "XLA Ops"] [--top 30]
+    python -m braintpu_torch.cli visualize --input CASE_DIR --segmentation SEG --output DIR
+    python -m braintpu_torch.cli compare --gt GT --pred PRED --output grid.png [--background MRI]
+    python -m braintpu_torch.cli data [--root BRATS_ROOT]
 
 The subcommands and flags follow ``braintpu/cli.py`` for what the port has
 (``--models`` from model1, model2, axial and axial-full, checkpoints as npz
@@ -32,9 +37,13 @@ folds, nnU-Net ``.model`` files or a raw nnU-Net results tree,
 ``--random-weights``, ``--mode {sliding,fullconv}`` with fullconv as the
 default unless an axial model is selected, as the reference's
 ``load_engine`` chooses, ``--ensemble {softmax,label}``, ``segment
---batch-cases N``), plus
+--batch-cases N``, ``segment --trace-dir``, ``profile-report``,
+``visualize``, ``compare``, ``data``), plus
 ``--device`` on the commands that build an engine or a vector store: the
-card by default, ``cpu`` only when asked for.  One deliberate change:
+card by default, ``cpu`` only when asked for.  ``profile-report`` reads the
+``torch.profiler`` Chrome trace that ``segment --trace-dir`` writes: its
+``--line "XLA Ops"`` tables the card's kernels, ``"XLA Modules"`` the
+top-level host ops.  One deliberate change:
 ``serve`` exits non-zero when its warm-up fails (the reference prints that
 the first request will compile and serves on), because warm-up is where
 the kernels build and load, and no job could succeed after it failed.
@@ -157,7 +166,9 @@ def _model_configs():
 
 
 def cmd_segment(args) -> int:
-    from .io.brats import CasePrefetcher, find_cases
+    import contextlib
+
+    from .io.brats import find_cases
 
     cases = find_cases(args.input)
     if not cases:
@@ -172,6 +183,20 @@ def cmd_segment(args) -> int:
         raise SystemExit("--batch-cases requires --mode fullconv")
     if args.warmup:
         print(f"# warmup: {engine.warmup(batch_size=args.batch_cases if use_batched else 0):.1f}s")
+    trace_ctx = contextlib.nullcontext()
+    if args.trace_dir:
+        from .utils.profiling import device_trace
+
+        trace_ctx = device_trace(args.trace_dir)
+        print(f"capturing device trace to {args.trace_dir} "
+              "(analyze with: braintpu_torch profile-report <dir>)", flush=True)
+    with trace_ctx:
+        return _run_segment(args, engine, cases, out, use_batched)
+
+
+def _run_segment(args, engine, cases, out: Path, use_batched: bool) -> int:
+    from .io.brats import CasePrefetcher
+
     if use_batched:
         for _, info in engine.predict_cases_batched(cases, output_dir=out,
                                                     batch_size=args.batch_cases):
@@ -321,6 +346,69 @@ def cmd_rename(args) -> int:
     for old, new in changes:
         print(f"{'would rename' if args.dry_run else 'renamed'}: {old} → {new}")
     print(f"{len(changes)} file(s)")
+    return 0
+
+
+def cmd_visualize(args) -> int:
+    from .viz import visualize_case
+
+    written = visualize_case(args.input, args.segmentation, args.output, args.num_slices)
+    for p in written:
+        print(f"saved: {p}")
+    return 0
+
+
+def cmd_compare(args) -> int:
+    from .viz import compare_segmentations
+
+    out = compare_segmentations(args.gt, args.pred, args.output, args.background)
+    print(f"saved: {out}")
+    return 0
+
+
+def cmd_data(args) -> int:
+    """BraTS data access guide + optional local-folder audit (parity with
+    the upstream downloader helper, download_more_brats_data.py:13-30: an
+    instructions printer; BraTS data is gated and cannot be fetched
+    anonymously, so nothing is downloaded)."""
+    if args.root:
+        from .io.brats import find_cases
+
+        # find_cases already returns only complete cases
+        complete = find_cases(args.root)
+        with_gt = [c for c in complete if c.seg_path]
+        print(f"{args.root}: {len(complete)} complete cases, {len(with_gt)} with ground truth")
+        for c in complete[:20]:
+            print(f"  {c.case_id}  (gt={'yes' if c.seg_path else 'no'})")
+        if len(complete) > 20:
+            print(f"  ... and {len(complete) - 20} more")
+        return 0
+    print(
+        """BraTS data is gated behind Synapse registration (no anonymous download):
+
+1. Create an account at https://www.synapse.org
+2. Request access to the BraTS challenge project:
+     BraTS 2021: syn25829067      BraTS 2023+ (GLI): syn51156910
+3. Accept the data-use agreement, then download the training archive
+   via the web UI or the synapse CLI:
+     pip install synapseclient
+     synapse get -r <syn-id>
+4. Point the framework at the extracted folder:
+     braintpu_torch data --root /path/to/BraTS   # audit what you have
+     braintpu_torch pipeline /path/to/BraTS/<case_folder>
+
+Each case folder must contain the four modalities
+(<case>_t1 / _t1ce / _t2 / _flair, or 2025 naming t1n/t1c/t2w/t2f —
+run `braintpu_torch rename` to convert) as .nii/.nii.gz, plus optional _seg."""
+    )
+    return 0
+
+
+def cmd_profile_report(args) -> int:
+    from .utils.xprof import aggregate_trace, format_table
+
+    ops = aggregate_trace(args.trace, line=args.line)
+    print(format_table(ops, top=args.top))
     return 0
 
 
@@ -527,6 +615,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run one dummy case of the standard bucket (at the batch shape with "
                         "--batch-cases) before the first case")
+    p.add_argument("--trace-dir",
+                   help="capture a torch.profiler trace of the run (host ops and the card's "
+                        "kernels) into this directory (analyze with 'profile-report')")
     # standalone segment saves BraTS-2025 labels by default (the pipeline
     # keeps internal labels and converts in its own stage)
     _add_engine_args(p, convention_default="brats2025")
@@ -626,6 +717,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("folder")
     p.add_argument("--dry-run", action="store_true")
     p.set_defaults(fn=cmd_rename)
+
+    p = sub.add_parser("visualize", help="segmentation overlay PNGs per modality")
+    p.add_argument("--input", required=True)
+    p.add_argument("--segmentation", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--num-slices", type=int, default=9)
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("compare", help="GT vs prediction comparison grid")
+    p.add_argument("--gt", required=True)
+    p.add_argument("--pred", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--background", help="optional MRI for the underlay")
+    p.set_defaults(fn=cmd_compare)
+
+    p = sub.add_parser("data", help="BraTS dataset access instructions / local audit")
+    p.add_argument("--root", help="audit an existing local dataset folder")
+    p.set_defaults(fn=cmd_data)
+
+    p = sub.add_parser("profile-report",
+                       help="per-op time table from a torch.profiler trace (segment --trace-dir)")
+    p.add_argument("trace", help="trace dir (newest capture) or a .pt.trace.json[.gz] file")
+    p.add_argument("--line", default="XLA Ops",
+                   help='"XLA Ops" (the card\'s kernels) or "XLA Modules" (top-level host ops)')
+    p.add_argument("--top", type=int, default=30)
+    p.set_defaults(fn=cmd_profile_report)
     return parser
 
 

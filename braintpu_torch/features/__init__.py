@@ -1,8 +1,9 @@
 """Radiology feature extraction: the reference's 6-step pipeline on a shared context.
 
-The port's copy of ``braintpu/features`` on its host route (numpy and scipy):
-the device-batched statistics (``devstats``) are not ported, so no step has
-a device branch and ``BRAINTPU_DEVICE_FEATURES`` means nothing here.
+The port's copy of ``braintpu/features``: the host route in numpy and scipy,
+and the device-batched statistics of :mod:`.devstats` in PyTorch, routed per
+kernel group by ``BRAINTPU_DEVICE_FEATURES`` (``auto`` takes the groups
+measured to win on the H100, and only for a context on a CUDA card).
 """
 
 from .context import (

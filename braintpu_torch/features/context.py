@@ -16,9 +16,10 @@ Mask/stat semantics mirror upstream feature_extraction/utils.py:
   (utils.py:27-51).
 
 The volume-wide reductions (percentiles, masked means) are batched into as
-few passes as possible; everything is plain numpy on the host — these are
-bandwidth-trivial compared to segmentation and keep the feature layer
-runnable with zero device state.
+few passes as possible.  The host route is plain numpy and keeps the
+feature layer runnable with zero device state; the groups that
+``BRAINTPU_DEVICE_FEATURES`` routes to the context's ``device`` run the
+same reductions on tensors there (:mod:`.devstats`).
 """
 
 from __future__ import annotations
@@ -110,11 +111,27 @@ class FeatureContext:
     affine: np.ndarray
     zooms: Tuple[float, float, float]
     modality_files: Dict[str, str] = field(default_factory=dict)
+    #: the device of the device feature groups (``None``: the card when one
+    #: is present); ``auto`` routing takes its groups only for a CUDA device
+    device: Any = None
 
     _tumor_masks: Optional[Dict[str, np.ndarray]] = None
     _brain_masks: Dict[str, np.ndarray] = field(default_factory=dict)
     _dilated_wt: Dict[int, np.ndarray] = field(default_factory=dict)
     _normal_stats: Dict[str, Dict] = field(default_factory=dict)
+    _device_stats: Optional[Dict[str, Dict[str, Dict]]] = None
+    #: one-upload-per-case device residency (devstats.DeviceVolumes),
+    #: shared by every device feature kernel; built lazily on the
+    #: BRAINTPU_DEVICE_FEATURES device path only
+    _device_volumes: Optional[Any] = None
+    #: in-flight background upload thread (start_device_upload) and the
+    #: exception it raised, re-raised when the volumes are asked for
+    _device_upload: Optional[Any] = None
+    _device_upload_error: Optional[Exception] = None
+    _mass_stats: Optional[Dict[str, Any]] = None
+    _artifact_stats: Optional[Dict[str, Any]] = None
+    _morph_stats: Optional[Dict[str, Any]] = None
+    _paren_stats: Optional[Dict[str, Any]] = None
     #: (ventricles, csf) host masks cached by step6.identify_ventricles
     _ventricle_masks: Optional[Tuple[Any, Any]] = None
     #: per-modality positive out-of-brain values (step-5 SNR + artifact
@@ -126,6 +143,11 @@ class FeatureContext:
     #: per-region voxel counts from ONE seg bincount (dozens of call sites
     #: otherwise each pay a full-volume mask popcount)
     _region_counts: Optional[Dict[str, int]] = None
+    #: device-routing decision pinned for the case at start_device_upload
+    #: time (None → per-call check).  Pinning prevents a mid-case flip: if
+    #: the device frees up at step 5 after the route was host at step 1, a
+    #: device kernel would pay a synchronous DeviceVolumes upload.
+    _device_route: Optional[frozenset] = None
 
     @classmethod
     def load(cls, input_folder, segmentation_path) -> "FeatureContext":
@@ -162,6 +184,7 @@ class FeatureContext:
         case_id: str = "case",
         affine: Optional[np.ndarray] = None,
         modality_files: Optional[Dict[str, str]] = None,
+        device=None,
     ) -> "FeatureContext":
         return cls(
             case_id=case_id,
@@ -170,6 +193,7 @@ class FeatureContext:
             affine=affine if affine is not None else np.eye(4),
             zooms=tuple(float(z) for z in zooms),
             modality_files=modality_files or {},
+            device=device,
         )
 
     # -- derived, cached ---------------------------------------------------
@@ -262,20 +286,161 @@ class FeatureContext:
             )
         return self._dilated_wt[iterations]
 
+    def device_volumes(self):
+        """Device-resident modality stack + seg + brain mask, uploaded ONCE
+        per case on the context's device and shared by every device feature
+        kernel (devstats.DeviceVolumes).  Joins a pending background upload
+        (start_device_upload) and re-raises its error."""
+        if self._device_upload is not None:
+            self._device_upload.join()
+            self._device_upload = None
+        if self._device_upload_error is not None:
+            err, self._device_upload_error = self._device_upload_error, None
+            raise err
+        if self._device_volumes is None:
+            from .devstats import DeviceVolumes
+
+            self._device_volumes = DeviceVolumes(
+                self.modalities, self.seg, self.brain_mask("t1"), device=self.device
+            )
+        return self._device_volumes
+
+    def start_device_upload(self) -> None:
+        """Pin the case's device route and, when it names any group, start
+        the DeviceVolumes transfer on a background thread.
+
+        The feature runner calls this before step 1: steps 1–4 are
+        host-bound, which hides the stacking and the copy, so the device
+        steps find the volumes already resident instead of paying the
+        upload synchronously."""
+        from .devstats import DeviceVolumes, device_feature_groups
+
+        # in the overlapped pipeline the device is claimed by the next
+        # case's segmentation and 'auto' resolves to host for the WHOLE case
+        self._device_route = device_feature_groups(self.device)
+        if (
+            self._device_volumes is not None
+            or self._device_upload is not None
+            or not self._device_route
+        ):
+            return
+        import threading
+
+        # derived host inputs compute on the calling thread (cached — the
+        # steps need them anyway), so the worker only stacks + transfers
+        brain = self.brain_mask("t1")
+
+        def build() -> None:
+            try:
+                self._device_volumes = DeviceVolumes(
+                    self.modalities, self.seg, brain, device=self.device
+                ).block_until_uploaded()
+            except Exception as e:  # re-raised by device_volumes()
+                self._device_upload_error = e
+
+        self._device_upload = threading.Thread(target=build, daemon=True)
+        self._device_upload.start()
+
+    def _dev_stats(self) -> Dict[str, Dict[str, Dict]]:
+        """All region × modality stats (plus the normal reference and the
+        step-5 quality reductions) from ONE device pass
+        (features/devstats.py); computed lazily, cached for the case."""
+        if self._device_stats is None:
+            from .devstats import compute_case_stats
+
+            self._device_stats = compute_case_stats(
+                self.modalities, self.seg, self.brain_mask("t1"),
+                dev=self.device_volumes(),
+            )
+        return self._device_stats
+
+    def mass_effect_stats(self) -> Dict[str, Any]:
+        """Step-2 device reductions (slab counts, CSF threshold/counts,
+        peritumoral spread); cached for the case.  Only called on the
+        device route of the 'mass' group."""
+        if self._mass_stats is None:
+            from .devstats import compute_mass_effect_stats
+
+            self._mass_stats = compute_mass_effect_stats(
+                self.modalities["t1"], self.tumor_masks["wt"],
+                self.brain_mask("t1"), dev=self.device_volumes(),
+            )
+        return self._mass_stats
+
+    def artifact_stats(self) -> Dict[str, Any]:
+        """Step-5 artifact-detector device reductions (bias shells,
+        background CVs, per-z zero counts, edge maxima, Gibbs gradient
+        stats); cached per case.  Only called on the device route of the
+        'artifacts' group."""
+        if self._artifact_stats is None:
+            from .devstats import compute_artifact_stats
+
+            self._artifact_stats = compute_artifact_stats(
+                self.modalities, self.brain_mask("t1"),
+                self.tumor_masks["wt"], dev=self.device_volumes(),
+            )
+        return self._artifact_stats
+
+    def morphology_stats(self) -> Dict[str, Any]:
+        """Step-4 border/margin device reductions (erosion surface count,
+        signed-EDT gradient stats, dilation-band T1ce means); cached per
+        case.  Only called on the device route of the 'morph' group."""
+        if self._morph_stats is None:
+            from .devstats import compute_morphology_stats
+
+            self._morph_stats = compute_morphology_stats(
+                self.modalities["t1ce"], self.tumor_masks["wt"],
+                dev=self.device_volumes(),
+            )
+        return self._morph_stats
+
+    def parenchyma_stats(self) -> Dict[str, Any]:
+        """Step-6 parenchyma device reductions (EDT depth field,
+        deep/cortical band stats); cached per case.  Only called on the
+        device route of the 'parenchyma' group."""
+        if self._paren_stats is None:
+            from .devstats import compute_parenchyma_stats
+
+            self._paren_stats = compute_parenchyma_stats(
+                self.modalities["t1"], self.modalities["flair"],
+                self.brain_mask("t1"), self.tumor_masks["wt"],
+                dev=self.device_volumes(),
+            )
+        return self._paren_stats
+
     def region_stats(self, region: str, modality: str) -> Dict:
         """Masked intensity summary for a tumor region on one sequence.
 
-        Same schema as :func:`intensity_stats`.
+        Same schema as :func:`intensity_stats`; on the device route of the
+        'stats' group all regions' stats come from a single batched device
+        reduction instead of per-mask host passes.
         """
+        if self._use_device_stats("stats"):
+            return self._dev_stats()[region][modality]
         return intensity_stats(self.modalities[modality], self.tumor_masks[region])
+
+    def _use_device_stats(self, group: str = None) -> bool:
+        """Whether the device kernel group is active (devstats routing:
+        'stats' shared-sort quantiles, 'mass', 'morph', 'artifacts',
+        'parenchyma' — BRAINTPU_DEVICE_FEATURES routes them independently).
+        Uses the per-case pinned route when start_device_upload ran (the
+        runner's path), else the live check for the context's device."""
+        if self._device_route is not None:
+            return (group in self._device_route) if group else bool(self._device_route)
+        from .devstats import device_features_enabled
+
+        return device_features_enabled(group, device=self.device)
 
     def normal_stats(self, modality: str) -> Dict:
         """Normal-brain (non-tumor, >5th-pct) intensity reference per sequence."""
         if modality not in self._normal_stats:
-            data = self.modalities[modality]
-            # tumor_masks["background"] is the cached seg == 0
-            normal = self.brain_mask(modality) & self.tumor_masks["background"]
-            self._normal_stats[modality] = intensity_stats(data, normal)
+            if self._use_device_stats("stats"):
+                self._normal_stats[modality] = self._dev_stats()["normal"][modality]
+            else:
+                data = self.modalities[modality]
+                # tumor_masks["background"] is the cached seg == 0
+                normal = self.brain_mask(modality) & self.tumor_masks["background"]
+                self._normal_stats[modality] = intensity_stats(data, normal)
         return self._normal_stats[modality]
 
     def region_volume_cm3(self, region: str) -> float:

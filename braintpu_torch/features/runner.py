@@ -347,6 +347,10 @@ def run_all_steps(
     if ctx is None:
         ctx = FeatureContext.load(input_folder, segmentation_path)
 
+    # overlap the DeviceVolumes host→device transfer with the host-bound
+    # early steps (no-op unless a device kernel group is active)
+    ctx.start_device_upload()
+
     all_results: Dict = {
         "case_id": ctx.case_id,
         "analysis_timestamp": _dt.datetime.now().isoformat(),

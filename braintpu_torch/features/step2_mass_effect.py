@@ -74,8 +74,18 @@ def calculate_midline_shift(ctx: FeatureContext) -> Dict:
             "clinical_significance": "No tumor present to cause mass effect",
             "is_significant": False,
         }
-    per_x = brain.sum(axis=(1, 2)).astype(np.float64)  # voxels per slab
-    tumor_cx_f = float(np.nonzero(tumor)[0].mean())
+    if ctx._use_device_stats("mass"):
+        # one fused device pass (features/devstats.py) supplies the exact
+        # integer slab counts; the float64 COM math below is unchanged
+        ms = ctx.mass_effect_stats()
+        per_x = ms["per_x_brain"].astype(np.float64)
+        per_x_tumor = ms["per_x_tumor"].astype(np.float64)
+        tumor_cx_f = float(
+            (np.arange(per_x_tumor.size) * per_x_tumor).sum() / per_x_tumor.sum()
+        )
+    else:
+        per_x = brain.sum(axis=(1, 2)).astype(np.float64)  # voxels per slab
+        tumor_cx_f = float(np.nonzero(tumor)[0].mean())
     xs = np.nonzero(per_x > 0)[0]
     if xs.size == 0:
         return {
@@ -148,11 +158,21 @@ def analyze_ventricular_compression(ctx: FeatureContext) -> Dict:
             "details": "Could not analyze - no brain tissue detected",
         }
     vox_cm3 = ctx.voxel_volume_mm3 / 1000.0
-    csf_threshold = np.percentile(t1[brain], 15)
-    csf = (t1 < csf_threshold) & (t1 > 0) & ~tumor
-    mid = t1.shape[0] // 2
-    left_vol = float(csf[:mid].sum() * vox_cm3)
-    right_vol = float(csf[mid:].sum() * vox_cm3)
+    if ctx._use_device_stats("mass"):
+        # threshold + hemispheric CSF counts from the fused device pass;
+        # the (rare, EDT-only) host csf mask below reuses the same f32
+        # threshold so counts and mask agree
+        ms = ctx.mass_effect_stats()
+        csf_threshold = ms["csf_threshold"]
+        csf = None
+        left_vol = float(ms["csf_left"] * vox_cm3)
+        right_vol = float(ms["csf_right"] * vox_cm3)
+    else:
+        csf_threshold = np.percentile(t1[brain], 15)
+        csf = (t1 < csf_threshold) & (t1 > 0) & ~tumor
+        mid = t1.shape[0] // 2
+        left_vol = float(csf[:mid].sum() * vox_cm3)
+        right_vol = float(csf[mid:].sum() * vox_cm3)
     total = left_vol + right_vol
     asym = abs(left_vol - right_vol) / total if total > 0 else 0.0
 
@@ -165,6 +185,8 @@ def analyze_ventricular_compression(ctx: FeatureContext) -> Dict:
 
     min_dist = None
     if tumor.any() and (left_vol + right_vol) > 0:
+        if csf is None:  # device path: materialize the mask only for EDT
+            csf = (t1 < csf_threshold) & (t1 > 0) & ~tumor
         # Exact: EDT of the CSF complement sampled at tumor voxels (in mm),
         # computed on an escalating tumor-padded box.  Every point outside
         # a box padded by P voxels is > P·min(zoom) mm from every tumor
@@ -221,13 +243,20 @@ def analyze_sulcal_effacement(ctx: FeatureContext) -> Dict:
             "severity": "No tumor detected",
             "details": "No tumor detected",
         }
-    expanded = ctx.dilated_wt(10)
-    peritumoral = expanded & ~tumor & brain
-    distant = brain & ~expanded
-    peri_count = int(peritumoral.sum())
-    distant_count = int(distant.sum())
-    peri_std = float(t1[peritumoral].std()) if peri_count else 0.0
-    distant_std = float(t1[distant].std()) if distant_count else 0.0
+    if ctx._use_device_stats("mass"):
+        # the 10× cross dilation runs on device as iterated per-axis
+        # 3-max-windows (exactly scipy's 6-connected binary_dilation)
+        ms = ctx.mass_effect_stats()
+        peri_count, distant_count = ms["peri_count"], ms["distant_count"]
+        peri_std, distant_std = ms["peri_std"], ms["distant_std"]
+    else:
+        expanded = ctx.dilated_wt(10)
+        peritumoral = expanded & ~tumor & brain
+        distant = brain & ~expanded
+        peri_count = int(peritumoral.sum())
+        distant_count = int(distant.sum())
+        peri_std = float(t1[peritumoral].std()) if peri_count else 0.0
+        distant_std = float(t1[distant].std()) if distant_count else 0.0
     if peri_count == 0:
         return {
             "effacement_detected": False,

@@ -77,22 +77,29 @@ def analyze_border_regularity(
 ) -> Dict:
     if mask.sum() == 0:
         return {"regularity_score": 0, "classification": "No tumor", "description": "No tumor detected"}
-    surface = mask & ~binary_erosion_bbox(mask)
-    surf_count = int(surface.sum())
-    if surf_count >= 10:
-        # signed-EDT gradients are consumed ONLY at surface voxels,
-        # whose distances to the boundary are <=1 voxel — a box padded
-        # by 4 (1 for the distance + 2 for np.gradient's stencil +
-        # margin) is exact, and ~25x less EDT work than the full grid
-        sl = bbox_slices(mask, pad=4)
-        msk = mask[sl]
-        signed = edt(msk) - edt(~msk)
-        grads = np.gradient(signed)
-        grad_mag = np.sqrt(grads[0] ** 2 + grads[1] ** 2 + grads[2] ** 2)
-        surf_grad = grad_mag[surface[sl]]
-        g_mean, g_std = float(surf_grad.mean()), float(surf_grad.std())
+    if ctx is not None and ctx._use_device_stats("morph"):
+        # signed-EDT gradient stats from the fused device pass (exact
+        # separable squared-EDT + np.gradient semantics, devstats.py)
+        ms = ctx.morphology_stats()
+        surf_count = ms["surface_count"]
+        g_mean, g_std = ms["grad_mean"], ms["grad_std"]
     else:
-        g_mean = g_std = 0.0
+        surface = mask & ~binary_erosion_bbox(mask)
+        surf_count = int(surface.sum())
+        if surf_count >= 10:
+            # signed-EDT gradients are consumed ONLY at surface voxels,
+            # whose distances to the boundary are <=1 voxel — a box padded
+            # by 4 (1 for the distance + 2 for np.gradient's stencil +
+            # margin) is exact, and ~25x less EDT work than the full grid
+            sl = bbox_slices(mask, pad=4)
+            msk = mask[sl]
+            signed = edt(msk) - edt(~msk)
+            grads = np.gradient(signed)
+            grad_mag = np.sqrt(grads[0] ** 2 + grads[1] ** 2 + grads[2] ** 2)
+            surf_grad = grad_mag[surface[sl]]
+            g_mean, g_std = float(surf_grad.mean()), float(surf_grad.std())
+        else:
+            g_mean = g_std = 0.0
     if surf_count < 10:
         return {
             "regularity_score": 1.0,
@@ -130,19 +137,27 @@ def analyze_margin_definition(ctx: FeatureContext) -> Dict:
     wt = ctx.tumor_masks["wt"]
     if wt.sum() == 0:
         return {"margin_sharpness": 0, "classification": "No tumor", "description": "No tumor detected"}
-    dilated = ctx.dilated_wt(5)
-    peritumoral = dilated & ~wt
-    peri_n = int(peritumoral.sum())
-    tumor_mean = float(t1ce[wt].mean())
-    peri_mean = float(t1ce[peritumoral].mean()) if peri_n else 0.0
-    inner = wt & ~binary_erosion_bbox(wt)
-    outer = binary_dilation_bbox(wt) & ~wt
-    iv, ov = t1ce[inner], t1ce[outer]
-    inner_n, outer_n = iv.size, ov.size
-    i_mean = float(iv.mean()) if inner_n else 0.0
-    i_std = float(iv.std()) if inner_n else 0.0
-    o_mean = float(ov.mean()) if outer_n else 0.0
-    o_std = float(ov.std()) if outer_n else 0.0
+    if ctx._use_device_stats("morph"):
+        ms = ctx.morphology_stats()
+        peri_n = ms["peri_count"]
+        tumor_mean, peri_mean = ms["wt_t1ce_mean"], ms["peri_t1ce_mean"]
+        inner_n, outer_n = ms["inner_count"], ms["outer_count"]
+        i_mean, i_std = ms["inner_mean"], ms["inner_std"]
+        o_mean, o_std = ms["outer_mean"], ms["outer_std"]
+    else:
+        dilated = ctx.dilated_wt(5)
+        peritumoral = dilated & ~wt
+        peri_n = int(peritumoral.sum())
+        tumor_mean = float(t1ce[wt].mean())
+        peri_mean = float(t1ce[peritumoral].mean()) if peri_n else 0.0
+        inner = wt & ~binary_erosion_bbox(wt)
+        outer = binary_dilation_bbox(wt) & ~wt
+        iv, ov = t1ce[inner], t1ce[outer]
+        inner_n, outer_n = iv.size, ov.size
+        i_mean = float(iv.mean()) if inner_n else 0.0
+        i_std = float(iv.std()) if inner_n else 0.0
+        o_mean = float(ov.mean()) if outer_n else 0.0
+        o_std = float(ov.std()) if outer_n else 0.0
     if peri_n == 0:
         return {
             "margin_sharpness": 0.5,
@@ -335,7 +350,16 @@ def calculate_shape_descriptors(ctx: FeatureContext) -> Dict:
             "elongation_classification": "No tumor",
         }
     volume_mm3 = float(wt.sum() * ctx.voxel_volume_mm3)
-    surface = calculate_surface_area(wt, ctx.zooms)
+    if ctx._use_device_stats("morph"):
+        # erosion-surface count shared with the border kernel
+        avg_face = (
+            ctx.zooms[0] * ctx.zooms[1]
+            + ctx.zooms[1] * ctx.zooms[2]
+            + ctx.zooms[0] * ctx.zooms[2]
+        ) / 3
+        surface = float(ctx.morphology_stats()["surface_count"] * avg_face)
+    else:
+        surface = calculate_surface_area(wt, ctx.zooms)
     sphericity = calculate_sphericity(volume_mm3, surface)
     compactness = calculate_compactness(volume_mm3, surface)
     elongation, axes = calculate_elongation(wt, ctx.zooms)

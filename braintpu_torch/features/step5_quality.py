@@ -141,48 +141,68 @@ def assess_segmentation_quality(ctx: FeatureContext) -> Dict:
 
 def assess_image_quality(ctx: FeatureContext) -> Dict:
     brain = ctx.brain_mask("t1")
+    dev = None
+    if ctx._use_device_stats("stats"):
+        # the case's single fused device pass replaces the ~16 masked
+        # host reductions below (shared with step 1's region stats)
+        dev = ctx._dev_stats()["quality"]
     metrics: Dict[str, Dict] = {}
     overall_issues: List[str] = []
     for mod, name in SEQ_DISPLAY.items():
         data = ctx.modalities[mod]
         seq_issues: List[str] = []
-        brain_values = data[brain]
-        if brain_values.size == 0:
-            seq_issues.append("No brain tissue detected")
-            metrics[name] = {"snr_estimate": 0, "issues": seq_issues, "quality": "Poor"}
-            continue
-        signal_mean = float(brain_values.mean())
-        brain_std = float(brain_values.std())
-        # background noise = positive out-of-brain voxels below the
-        # 10th percentile of ALL positive voxels.  Computed on the
-        # gathered 1-D subsets (out_vals[out_vals < p10]) — identical
-        # value multiset to the previous 3-D mask
-        # ``~brain & (data > 0) & (data < p10)``, four fewer
-        # full-volume passes per modality.
-        out_vals = ctx.background_values(mod)
-        # noise floor = 10th percentile of ALL positive voxels (shared
-        # per-case gather); a blank/corrupt modality can have a
-        # non-empty brain mask (it is shared across modalities) but
-        # zero positive voxels — np.percentile on the empty array
-        # would abort the whole run
-        nz = ctx.positive_values(mod)
-        if nz.size:
-            bg_values = out_vals[out_vals < np.percentile(nz, 10)]
+        if dev is not None:
+            s = dev[mod]
+            n_brain = s["n_brain"]
+            if n_brain == 0:
+                seq_issues.append("No brain tissue detected")
+                metrics[name] = {"snr_estimate": 0, "issues": seq_issues, "quality": "Poor"}
+                continue
+            signal_mean, brain_std = s["mean"], s["std"]
+            if s["bg_count"] > 100:
+                snr = signal_mean / s["bg_std"] if s["bg_std"] > 0 else 0.0
+            else:
+                snr = signal_mean / brain_std if brain_std > 0 else 0.0
+            zero_fraction = s["zeros_in_brain"] / n_brain
+            outlier_fraction = s["outliers"] / n_brain
         else:
-            bg_values = out_vals
-        if bg_values.size > 100:
-            bg_std = float(bg_values.std())
-            snr = signal_mean / bg_std if bg_std > 0 else 0.0
-        else:
-            snr = signal_mean / brain_std if brain_std > 0 else 0.0
+            brain_values = data[brain]
+            if brain_values.size == 0:
+                seq_issues.append("No brain tissue detected")
+                metrics[name] = {"snr_estimate": 0, "issues": seq_issues, "quality": "Poor"}
+                continue
+            signal_mean = float(brain_values.mean())
+            brain_std = float(brain_values.std())
+            # background noise = positive out-of-brain voxels below the
+            # 10th percentile of ALL positive voxels.  Computed on the
+            # gathered 1-D subsets (out_vals[out_vals < p10]) — identical
+            # value multiset to the previous 3-D mask
+            # ``~brain & (data > 0) & (data < p10)``, four fewer
+            # full-volume passes per modality.
+            out_vals = ctx.background_values(mod)
+            # noise floor = 10th percentile of ALL positive voxels (shared
+            # per-case gather); a blank/corrupt modality can have a
+            # non-empty brain mask (it is shared across modalities) but
+            # zero positive voxels — np.percentile on the empty array
+            # would abort the whole run
+            nz = ctx.positive_values(mod)
+            if nz.size:
+                bg_values = out_vals[out_vals < np.percentile(nz, 10)]
+            else:
+                bg_values = out_vals
+            if bg_values.size > 100:
+                bg_std = float(bg_values.std())
+                snr = signal_mean / bg_std if bg_std > 0 else 0.0
+            else:
+                snr = signal_mean / brain_std if brain_std > 0 else 0.0
 
-        # zeros-in-brain from the already-gathered brain values
-        zero_fraction = float((brain_values == 0).sum() / brain_values.size)
+            # zeros-in-brain from the already-gathered brain values
+            zero_fraction = float((brain_values == 0).sum() / brain_values.size)
 
-        q01, q25, q75, q99 = np.percentile(brain_values, [1, 25, 75, 99])
-        iqr = q75 - q25
-        outliers = int((brain_values > q99 + 3 * iqr).sum() + (brain_values < q01 - 3 * iqr).sum())
-        outlier_fraction = outliers / brain_values.size
+            q01, q25, q75, q99 = np.percentile(brain_values, [1, 25, 75, 99])
+            iqr = q75 - q25
+            outliers = int((brain_values > q99 + 3 * iqr).sum() + (brain_values < q01 - 3 * iqr).sum())
+            outlier_fraction = outliers / brain_values.size
 
         if zero_fraction > 0.01:
             seq_issues.append(f"Missing data: {zero_fraction*100:.1f}% zeros within brain")
@@ -226,7 +246,15 @@ def detect_artifacts(ctx: FeatureContext) -> Dict:
     t1 = ctx.modalities["t1"]
     detected: List[str] = []
     details: Dict[str, Dict] = {}
-    if brain.any():
+    # every reduction below has a fused device twin
+    # (features/devstats.py::_artifact_kernel); the decision logic is
+    # shared — only the stat source switches
+    arts = ctx.artifact_stats() if ctx._use_device_stats("artifacts") else None
+
+    if arts is not None:
+        inner_n, outer_n = arts["inner_count"], arts["outer_count"]
+        inner_mean, outer_mean = arts["inner_mean"], arts["outer_mean"]
+    elif brain.any():
         # center-vs-periphery rings via a bbox-broadcast SQUARED distance
         # field: identical ring membership (sqrt is monotone, so
         # dist < 0.3·max ⟺ dist² < 0.09·max²) without materializing three
@@ -276,10 +304,14 @@ def detect_artifacts(ctx: FeatureContext) -> Dict:
             details["intensity_inhomogeneity"] = {"detected": False, "ratio": ratio}
 
     for mod, name in SEQ_DISPLAY.items():
-        vals = ctx.background_values(mod)
-        bg_n = int(vals.size)
-        bg_mean = float(vals.mean()) if bg_n else 0.0
-        bg_std = float(vals.std()) if bg_n else 0.0
+        if arts is not None:
+            st = arts[f"bg_{mod}"]
+            bg_n, bg_mean, bg_std = st["count"], st["mean"], st["std"]
+        else:
+            vals = ctx.background_values(mod)
+            bg_n = int(vals.size)
+            bg_mean = float(vals.mean()) if bg_n else 0.0
+            bg_std = float(vals.std()) if bg_n else 0.0
         if bg_n > 1000:
             cv = float(bg_std / bg_mean) if bg_mean > 0 else 0.0
             if cv > 0.5:
@@ -296,18 +328,25 @@ def detect_artifacts(ctx: FeatureContext) -> Dict:
                     details["motion_ghosting"]["affected_sequences"].append(name)
     details.setdefault("motion_ghosting", {"detected": False})
 
-    zero_clusters = (t1 == 0) & brain
-    zero_count = int(zero_clusters.sum())
+    if arts is not None:
+        pz, pb = arts["per_z_zero"], arts["per_z_brain"]
+        zero_count = int(pz.sum())
+        z_idx = np.arange(pz.size)
+        mean_z = float((z_idx * pz).sum() / pz.sum()) if zero_count else 0.0
+        brain_z = float((z_idx * pb).sum() / max(pb.sum(), 1))
+    else:
+        zero_clusters = (t1 == 0) & brain
+        zero_count = int(zero_clusters.sum())
 
-    def _mean_z(mask):
-        # mean z-coordinate via the z-projection histogram — equal to
-        # np.nonzero(mask)[2].mean() without materializing coordinates
-        cz = mask.sum(axis=(0, 1)).astype(np.float64)
-        n = cz.sum()
-        return float((np.arange(cz.size) * cz).sum() / n) if n else 0.0
+        def _mean_z(mask):
+            # mean z-coordinate via the z-projection histogram — equal to
+            # np.nonzero(mask)[2].mean() without materializing coordinates
+            cz = mask.sum(axis=(0, 1)).astype(np.float64)
+            n = cz.sum()
+            return float((np.arange(cz.size) * cz).sum() / n) if n else 0.0
 
-    mean_z = _mean_z(zero_clusters) if zero_count else 0.0
-    brain_z = _mean_z(brain)
+        mean_z = _mean_z(zero_clusters) if zero_count else 0.0
+        brain_z = _mean_z(brain)
     if zero_count > 100:
         if mean_z < brain_z * 0.5:
             detected.append("Susceptibility artifact")
@@ -327,13 +366,22 @@ def detect_artifacts(ctx: FeatureContext) -> Dict:
     else:
         details["susceptibility"] = {"detected": False}
 
-    m = 5
-    edge_signal = {
-        "x_min": bool(t1[:m].max() > 0),
-        "x_max": bool(t1[-m:].max() > 0),
-        "y_min": bool(t1[:, :m].max() > 0),
-        "y_max": bool(t1[:, -m:].max() > 0),
-    }
+    if arts is not None:
+        em = arts["edge_max"]
+        edge_signal = {
+            "x_min": bool(em[0] > 0),
+            "x_max": bool(em[1] > 0),
+            "y_min": bool(em[2] > 0),
+            "y_max": bool(em[3] > 0),
+        }
+    else:
+        m = 5
+        edge_signal = {
+            "x_min": bool(t1[:m].max() > 0),
+            "x_max": bool(t1[-m:].max() > 0),
+            "y_min": bool(t1[:, :m].max() > 0),
+            "y_max": bool(t1[:, -m:].max() > 0),
+        }
     if sum(edge_signal.values()) >= 3:
         detected.append("Possible wrap-around")
         details["wrap_around"] = {
@@ -346,26 +394,30 @@ def detect_artifacts(ctx: FeatureContext) -> Dict:
         details["wrap_around"] = {"detected": False}
 
     if ctx.seg.max() > 0:
-        tumor = ctx.tumor_masks["wt"]
-        edge = tumor & ~binary_erosion_bbox(tumor, iterations=2)
-        edge_count = int(edge.sum())
-        if edge_count:
-            # gradients are read ONLY at tumor-edge voxels; sobel's
-            # 3-tap stencil makes a box padded by 2 exact there —
-            # three full-volume f64 sobel passes reduced to the box
-            from .boxops import bbox_slices
-
-            sl = bbox_slices(edge, pad=2)
-            tb = t1[sl].astype(float)
-            g = np.sqrt(
-                sobel(tb, axis=0) ** 2
-                + sobel(tb, axis=1) ** 2
-                + sobel(tb, axis=2) ** 2
-            )
-            vals = g[edge[sl]]
-            g_mean, g_std = float(vals.mean()), float(vals.std())
+        if arts is not None:
+            edge_count = arts["gibbs_edge_count"]
+            g_mean, g_std = arts["gibbs_grad_mean"], arts["gibbs_grad_std"]
         else:
-            g_mean = g_std = 0.0
+            tumor = ctx.tumor_masks["wt"]
+            edge = tumor & ~binary_erosion_bbox(tumor, iterations=2)
+            edge_count = int(edge.sum())
+            if edge_count:
+                # gradients are read ONLY at tumor-edge voxels; sobel's
+                # 3-tap stencil makes a box padded by 2 exact there —
+                # three full-volume f64 sobel passes reduced to the box
+                from .boxops import bbox_slices
+
+                sl = bbox_slices(edge, pad=2)
+                tb = t1[sl].astype(float)
+                g = np.sqrt(
+                    sobel(tb, axis=0) ** 2
+                    + sobel(tb, axis=1) ** 2
+                    + sobel(tb, axis=2) ** 2
+                )
+                vals = g[edge[sl]]
+                g_mean, g_std = float(vals.mean()), float(vals.std())
+            else:
+                g_mean = g_std = 0.0
         if edge_count > 100:
             cv = float(g_std / g_mean) if g_mean > 0 else 0.0
             if cv > 1.5:

@@ -172,25 +172,34 @@ def analyze_parenchyma(ctx: FeatureContext) -> Dict:
         }
     v = ctx.voxel_volume_cm3
 
-    # EDT cropped to the brain bbox +1: everything outside a tight
-    # brain box is background in the full volume too, and the +1 ring
-    # (clipped at true volume faces, where full-volume EDT also sees
-    # no further background) preserves exact distances — ~2.4x fewer
-    # voxels than the full grid, and every consumer below only reads
-    # in-box voxels.
-    sl = bbox_slices(brain, pad=1)
-    brain_b = brain[sl]
-    normal_b, t1_b, flair_b = normal[sl], t1[sl], flair[sl]
-    brain_dist = edt(brain_b)
-    in_brain_dist = brain_dist[brain_b]
-    cort_thr, deep_thr = np.percentile(in_brain_dist, [40, 60])
-    deep_wm = normal_b & (brain_dist > deep_thr)
-    cortical = normal_b & (brain_dist < cort_thr)
-    deep_count, cortical_count = int(deep_wm.sum()), int(cortical.sum())
-    deep_t1_mean = float(t1_b[deep_wm].mean()) if deep_count else 0.0
-    cort_t1_mean = float(t1_b[cortical].mean()) if cortical_count else 0.0
-    cort_flair_mean = float(flair_b[cortical].mean()) if cortical_count else 0.0
-    normal_count, brain_count = int(normal.sum()), int(brain.sum())
+    if ctx._use_device_stats("parenchyma"):
+        # depth field + band stats from the fused device pass (EDT is the
+        # dominant host cost of step 6); ventricle CC stays host below
+        ps = ctx.parenchyma_stats()
+        deep_count, cortical_count = ps["deep_count"], ps["cortical_count"]
+        deep_t1_mean, cort_t1_mean = ps["deep_t1_mean"], ps["cortical_t1_mean"]
+        cort_flair_mean = ps["cortical_flair_mean"]
+        normal_count, brain_count = ps["normal_count"], ps["brain_count"]
+    else:
+        # EDT cropped to the brain bbox +1: everything outside a tight
+        # brain box is background in the full volume too, and the +1 ring
+        # (clipped at true volume faces, where full-volume EDT also sees
+        # no further background) preserves exact distances — ~2.4x fewer
+        # voxels than the full grid, and every consumer below only reads
+        # in-box voxels.
+        sl = bbox_slices(brain, pad=1)
+        brain_b = brain[sl]
+        normal_b, t1_b, flair_b = normal[sl], t1[sl], flair[sl]
+        brain_dist = edt(brain_b)
+        in_brain_dist = brain_dist[brain_b]
+        cort_thr, deep_thr = np.percentile(in_brain_dist, [40, 60])
+        deep_wm = normal_b & (brain_dist > deep_thr)
+        cortical = normal_b & (brain_dist < cort_thr)
+        deep_count, cortical_count = int(deep_wm.sum()), int(cortical.sum())
+        deep_t1_mean = float(t1_b[deep_wm].mean()) if deep_count else 0.0
+        cort_t1_mean = float(t1_b[cortical].mean()) if cortical_count else 0.0
+        cort_flair_mean = float(flair_b[cortical].mean()) if cortical_count else 0.0
+        normal_count, brain_count = int(normal.sum()), int(brain.sum())
 
     ventricles, _ = identify_ventricles(ctx)
     pv = binary_dilation_bbox(ventricles, iterations=10) & normal & ~ventricles

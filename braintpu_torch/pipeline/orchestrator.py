@@ -214,12 +214,26 @@ class Pipeline:
         if not folders:
             return results
 
+        def segment_claimed(folder: Path, claimed: threading.Event) -> _SegOutcome:
+            # the claim routes concurrent feature steps (devstats 'auto')
+            # to the host so they never queue behind this device span —
+            # see devstats.device_claim
+            from ..features.devstats import device_claim
+
+            with device_claim():
+                claimed.set()
+                return self._segment_stage(folder)
+
         with ThreadPoolExecutor(max_workers=1, thread_name_prefix="seg") as pool:
-            fut = pool.submit(self._segment_stage, folders[0])
+            fut = pool.submit(segment_claimed, folders[0], threading.Event())
             for i in range(len(folders)):
                 outcome = fut.result()
                 if i + 1 < len(folders):
-                    fut = pool.submit(self._segment_stage, folders[i + 1])
+                    evt = threading.Event()
+                    fut = pool.submit(segment_claimed, folders[i + 1], evt)
+                    # don't let this case's feature routing pin 'device idle'
+                    # before the worker actually claims it (scheduling race)
+                    evt.wait(timeout=1.0)
                 if outcome.failed:
                     if self.config.fail_fast and outcome.exc is not None:
                         raise outcome.exc
@@ -394,6 +408,10 @@ class Pipeline:
                 modality_files={
                     m: str(p.name) for m, p in case.modality_paths.items()
                 },
+                # the engine's device routes the device feature groups, so
+                # `pipeline --device cpu` keeps 'auto' on the host (an
+                # engine stand-in without one leaves the default)
+                device=getattr(self.engine, "device", None),
             )
             # per-step spans: the span of step K is the gap between its
             # progress callback and the next one (the last step's span ends

@@ -78,8 +78,22 @@ steps; 12e runs phase 8's two-model fullconv engine through
 buckets, one padded batch): per-case seconds against serial, peak memory,
 launches against the formula, labels against per-case ``predict_case``
 (>= 0.9999: ``conv_stage`` sums its statistics with atomics), and ``cli
-segment --batch-cases 2`` as a process.  Every phase prints its
-wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
+segment --batch-cases 2`` as a process.  The feature statistics on the card
+and the single-card utilities: phase 13a runs the six feature steps
+(``run_all_steps``) on the seed-200 case at 240x240x155 under each route of
+``BRAINTPU_DEVICE_FEATURES`` in turns, twice (the host route, each device
+group alone, all groups), prints each route's step seconds (min of 2) beside
+the host's, holds every field of each route's summary to the host's, and
+prints which groups win (the decision behind ``MEASURED_WIN_GROUPS``);
+phase 10 runs its served pair once more on the other side of that decision;
+13b runs ``cli segment --trace-dir`` as a process and ``cli profile-report``
+on its trace, whose kernel table must name the three segmentation kernels;
+13c runs ``cli visualize`` and ``cli compare`` on seed 200 (where
+matplotlib is installed; without it both must stop with a message, and the
+overlay arrays are checked instead) and holds ``resize_trilinear`` /
+``resize_nearest`` on the card to the CPU.  Phase 6d
+pins the host route (``BRAINTPU_DEVICE_FEATURES=0``): it compares two host
+EDTs.  Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
 in the repository; cases and outputs go to a temporary directory.
@@ -103,6 +117,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -112,6 +127,9 @@ FLAGSHIP = ROOT / "results" / "flagship_trained" / "BraTS-SYN-00200-000" / "BraT
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM
 TOL = 0.02  # x max|plain|: bf16 output resolution (the CPU parity tests' bound)
+#: phase 4 times each plain version over 5 calls after 1 (the kernels and
+#: the library calls over 20 after 3): a depth cut for the smoke's time
+PLAIN_ITERS = {"iters": 5, "warmup": 1}
 
 
 @contextlib.contextmanager
@@ -218,7 +236,7 @@ def check_kernel(torch, shape, co, seed: int) -> dict:
         err, tol = max(err, e), max(tol, bound)
     kernel_ms = cuda_ms(torch, lambda: conv3d_tap_merged(x, w, b, 0.01))
     dev_ms = device_ms(lambda: conv3d_tap_merged(x, w, b, 0.01), "conv3d_tap_merged_kernel")
-    plain_ms = cuda_ms(torch, lambda: conv3d_tap_merged_ref(x, w, b, 0.01))
+    plain_ms = cuda_ms(torch, lambda: conv3d_tap_merged_ref(x, w, b, 0.01), **PLAIN_ITERS)
     xc = x.permute(0, 4, 1, 2, 3)
     wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
     bb = b.bfloat16()
@@ -294,7 +312,7 @@ def check_stage(torch, shape, co, ci2, seed: int) -> dict:
 
     kernel_ms = cuda_ms(torch, lambda: conv_stage(x1, w, b, **kw))
     dev_ms = device_ms(lambda: conv_stage(x1, w, b, **kw), "conv_stage_kernel")
-    plain_ms = cuda_ms(torch, lambda: conv_stage_ref(x1, w, b, **kw))
+    plain_ms = cuda_ms(torch, lambda: conv_stage_ref(x1, w, b, **kw), **PLAIN_ITERS)
     wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
     bb = b.bfloat16()
 
@@ -347,7 +365,7 @@ def check_upconv(torch, shape, co, seed: int) -> dict:
     kernel_ms = cuda_ms(torch, lambda: upconv2x(x, w))
     dev_ms = device_ms(lambda: upconv2x(x, w), "upconv2x_kernel")
     fill_ms = cuda_ms(torch, lambda: y.fill_(1.0))  # the same output bytes, written alone
-    plain_ms = cuda_ms(torch, lambda: upconv2x_ref(x, w))
+    plain_ms = cuda_ms(torch, lambda: upconv2x_ref(x, w), **PLAIN_ITERS)
     xc = x.permute(0, 4, 1, 2, 3)
     wt = w.permute(0, 4, 1, 2, 3).contiguous(memory_format=torch.channels_last_3d)
     library_ms = cuda_ms(torch, lambda: F.conv_transpose3d(xc, wt, stride=2))
@@ -775,6 +793,121 @@ def attention_profile(torch, run, what: str) -> dict:
             "device_ms_by_category": record["device_ms_by_category"]}
 
 
+#: the float fields of a feature summary held to the host's at 5e-2
+#: relative (the SNR block: a background std over a few thousand voxels at
+#: a p10 boundary); every other float at 2e-3 relative or absolute (the
+#: summary rounds its ratios to 3 decimals), everything else equal
+SUMMARY_LOOSE = ("snr",)
+
+
+def summary_diff(got, want, path="", out=None) -> list:
+    """The fields of ``got`` (a feature summary) that leave the host's
+    tolerance (:data:`SUMMARY_LOOSE`), as (path, got, want)."""
+    out = [] if out is None else out
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in sorted(set(got) | set(want)):
+            if k == "analysis_date":  # the clock, not a feature
+                continue
+            if k not in got or k not in want:
+                out.append((f"{path}/{k}", k in got, k in want))
+            else:
+                summary_diff(got[k], want[k], f"{path}/{k}", out)
+    elif isinstance(want, list) and isinstance(got, list) and len(got) == len(want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            summary_diff(g, w, f"{path}[{i}]", out)
+    elif isinstance(want, float) and isinstance(got, (int, float)) \
+            and not isinstance(got, bool):
+        rtol = 5e-2 if any(k in path.lower() for k in SUMMARY_LOOSE) else 2e-3
+        if not abs(got - want) <= max(rtol * abs(want), 2e-3):
+            out.append((path, got, want))
+    elif got != want:
+        out.append((path, got, want))
+    return out
+
+
+#: the feature steps whose host passes each device group replaces
+GROUP_STEPS = {"stats": ("step1_sequence_findings", "step5_quality"),
+               "mass": ("step2_mass_effect",), "morph": ("step4_morphology",),
+               "artifacts": ("step5_quality",), "parenchyma": ("step6_normal_structures",)}
+
+
+def feature_routes(case_dir: Path, seg_path: Path, device, out_dir: Path,
+                   repeats: int = 2) -> dict:
+    """``run_all_steps`` on one case under every route of
+    ``BRAINTPU_DEVICE_FEATURES`` (the host, each device group alone, all
+    groups), the routes in turns, ``repeats`` times, each run on a fresh
+    context of the decoded case on ``device``.  Returns per route the total
+    and per-step seconds (min over the repeats) and the summary fields that
+    leave the host's tolerance, per group the seconds of the steps it
+    replaces on the card and on the host, and the winning groups: those
+    whose steps run faster on the card, when all groups together beat the
+    host route."""
+    import numpy as np
+
+    from braintpu_torch.features import FeatureContext, run_all_steps
+    from braintpu_torch.features.devstats import GROUPS
+    from braintpu_torch.io import nifti
+    from braintpu_torch.io.brats import MODALITIES, find_cases, load_case_volumes
+
+    case = find_cases(case_dir)[0]
+    data, affine, zooms = load_case_volumes(case)
+    seg = np.round(nifti.load(seg_path).get_fdata(dtype=np.float32)).astype(np.int32)
+    seg = np.where(seg == 4, 3, seg).astype(np.int32)  # as FeatureContext.load reads it
+    routes = ("0", *GROUPS, "all")
+    runs = {r: {"total_s": [], "steps_s": []} for r in routes}
+    summaries = {}
+    saved = os.environ.get("BRAINTPU_DEVICE_FEATURES")
+    try:
+        for rep in range(repeats):
+            for route in routes:
+                os.environ["BRAINTPU_DEVICE_FEATURES"] = route
+                ctx = FeatureContext.from_arrays(
+                    {m: data[i] for i, m in enumerate(MODALITIES)}, seg, zooms=zooms[:3],
+                    case_id=case.case_id, affine=affine, device=device)
+                spans, last = {}, [None, 0.0]
+
+                def progress(step, spans=spans, last=last):
+                    now = time.perf_counter()
+                    if last[0] is not None:
+                        spans[last[0]] = now - last[1]
+                    last[0], last[1] = step, now
+
+                t0 = time.perf_counter()
+                res = run_all_steps(case_dir, seg_path, out_dir / f"{route}_{rep}", ctx=ctx,
+                                    progress=progress)
+                t1 = time.perf_counter()
+                spans[last[0]] = t1 - last[1]  # the last step + the report and JSON writes
+                runs[route]["total_s"].append(t1 - t0)
+                runs[route]["steps_s"].append(spans)
+                used = sorted(ctx._device_route)
+                if used != sorted(GROUPS if route == "all" else [] if route == "0" else [route]):
+                    raise AssertionError(f"route {route!r} ran the device groups {used}")
+                summaries[route] = res["llm_summary"]
+    finally:
+        if saved is None:
+            os.environ.pop("BRAINTPU_DEVICE_FEATURES", None)
+        else:
+            os.environ["BRAINTPU_DEVICE_FEATURES"] = saved
+    record = {}
+    for route, r in runs.items():
+        record[route] = {
+            "total_s": r["total_s"], "total_s_min": min(r["total_s"]),
+            "steps_s_min": {k: min(s[k] for s in r["steps_s"]) for k in r["steps_s"][0]},
+            "summary_fields_off": summary_diff(summaries[route], summaries["0"])}
+    # the set is decided group by group on the steps each group replaces:
+    # one upload per case serves every group of the set, so within the set
+    # a group costs only its own steps; and the set must beat the host
+    # route end to end (route 'all')
+    own = {}
+    for g in GROUPS:
+        steps = GROUP_STEPS[g]
+        own[g] = {"card_s": sum(record[g]["steps_s_min"][k] for k in steps),
+                  "host_s": sum(record["0"]["steps_s_min"][k] for k in steps), "steps": steps}
+    set_wins = record["all"]["total_s_min"] < record["0"]["total_s_min"]
+    winners = sorted(g for g in GROUPS if set_wins and own[g]["card_s"] < own[g]["host_s"])
+    return {"routes": record, "own_steps": own, "winners": winners}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -802,6 +935,7 @@ def main() -> int:
     from braintpu_torch import native
     from braintpu_torch.cli import build_parser, load_engine
     from braintpu_torch.features import run_all_steps
+    from braintpu_torch.features.devstats import GROUPS, MEASURED_WIN_GROUPS
     from braintpu_torch.infer import engine as engine_mod
     from braintpu_torch.infer.engine import ModelBundle
     from braintpu_torch.infer.gaussian import patch_grid
@@ -881,17 +1015,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
         tmp = Path(tmp)
         with phase("3 cases"):
-            anchor = write_synth_case(tmp / "in", "BraTS-SYN-00200-000", seed=200)
-            brats_size = write_synth_case(tmp / "in", "BraTS-SYN-00050-000", seed=50,
-                                          shape=(240, 240, 155))
-            flagship = write_synth_case(tmp / "flag", "BraTS-SYN-00200-000", seed=200,
-                                        shape=(240, 240, 155))
-            third = write_synth_case(tmp / "third", "BraTS-SYN-00051-000", seed=51,
-                                     shape=(240, 240, 155))  # phase 8d's third case
-            # phase 12e: seed 55 shares seed 50's fullconv bucket (seeds 50, 51
-            # and 200 fall in three buckets)
-            pair = write_synth_case(tmp / "pair", "BraTS-SYN-00055-000", seed=55,
-                                    shape=(240, 240, 155))
+            # each case from its own seed, written on a thread of its own
+            big = (240, 240, 155)
+            with ThreadPoolExecutor(max_workers=5) as pool:
+                futs = [pool.submit(write_synth_case, tmp / d, f"BraTS-SYN-{seed:05d}-000",
+                                    seed=seed, **kw)
+                        for d, seed, kw in (("in", 200, {}), ("in", 50, {"shape": big}),
+                                            ("flag", 200, {"shape": big}),
+                                            ("third", 51, {"shape": big}),
+                                            ("pair", 55, {"shape": big}))]
+                # phase 8d's third case is seed 51; phase 12e's seed 55 shares
+                # seed 50's fullconv bucket (seeds 50, 51 and 200 fall in three)
+                anchor, brats_size, flagship, third, pair = [f.result() for f in futs]
             buckets = {}
             for name, case in (("anchor", anchor), ("brats_size", brats_size),
                                ("flagship_geometry", flagship)):
@@ -901,6 +1036,8 @@ def main() -> int:
 
         results = {name: [] for name in kernels}  # per-shape checks, all buckets
         with phase("4 kernels vs plain"):
+            print("# cut: each plain version is timed over 5 calls after 1 warm-up (20 after 3 "
+                  "before), for the smoke's time")
             # every fullconv bucket at N = 1, and the sliding patch at N = 8 / 4
             fc = [(b, 1) for b in buckets.values()]
             sources = {
@@ -1188,6 +1325,9 @@ def main() -> int:
             secs, summaries = {"native": [], "scipy": []}, {}
             print("# cut: the feature steps run once per route (four runs in turns before), "
                   "for the smoke's time")
+            # both runs on the host route: with device groups the EDT of the
+            # steps they replace would not be the host's
+            os.environ["BRAINTPU_DEVICE_FEATURES"] = "0"
             for i, which in enumerate(("native", "scipy")):
                 if which == "scipy" or not native.native_available():
                     native.edt_sq = scipy_route
@@ -1200,6 +1340,7 @@ def main() -> int:
                 summaries[which] = json.loads(
                     (tmp / f"features_{i}" / "llm_ready_summary.json").read_text())
                 summaries[which].pop("analysis_date")  # the clock, not a feature
+            del os.environ["BRAINTPU_DEVICE_FEATURES"]
             same = summaries["native"] == summaries["scipy"]
             print(json.dumps({"features": {
                 "case": "BraTS-SYN-00200-000 240x240x155", "native_available":
@@ -1400,7 +1541,9 @@ def main() -> int:
                     engine2.predict_case(case, out3 / f"{case.case_id}.nii.gz", loaded=loaded)
 
             walls = {"serial": [], "prefetched": []}
-            for which in ("serial", "prefetched", "prefetched", "serial"):
+            print("# cut: one serial and one prefetched loop (two of each in turns before), "
+                  "for the smoke's time")
+            for which in ("serial", "prefetched"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 (serial if which == "serial" else prefetched)()
@@ -1457,6 +1600,22 @@ def main() -> int:
                 torch.cuda.synchronize()
                 served_launches = counts()
                 int8_served = int8_matmul.launches
+                # the pair once more on the other side of the feature-routing
+                # decision (phase 13a): the host route when 'auto' takes device
+                # groups, else every group on the card
+                alt_route = "0" if MEASURED_WIN_GROUPS else "all"
+                os.environ["BRAINTPU_DEVICE_FEATURES"] = alt_route
+                try:
+                    t_alt = time.perf_counter()
+                    for name, case_dir in (("seed50_alt", brats_size), ("seed51_alt", third)):
+                        t0 = time.perf_counter()
+                        jobs[name] = submit(url, case_dir, as_json=True)
+                        t_submit[jobs[name]] = t0
+                    ended.update(wait_jobs(url, [jobs["seed50_alt"], jobs["seed51_alt"]],
+                                           t_submit, latencies=status_lat))
+                    alt_pair_wall = time.perf_counter() - t_alt
+                finally:
+                    del os.environ["BRAINTPU_DEVICE_FEATURES"]
                 j200 = jobs["alone"]
                 lat = {"status": status_lat, "report": [], "pdf": [], "metrics": [], "chat": []}
                 bodies = {}
@@ -1529,7 +1688,10 @@ def main() -> int:
                 "jobs": {n: {"job": j, "submit_to_done_s": ended[j][1],
                              "stage_seconds": stage_spans(journals[n])}
                          for n, j in jobs.items()},
+                "feature_route": {"auto": sorted(MEASURED_WIN_GROUPS),
+                                  "alt_pair": alt_route},
                 "alone_s": ended[j200][1], "pair_wall_s": pair_wall,
+                "alt_route_pair_wall_s": alt_pair_wall,
                 "pair_segment_overlap_s": overlap,
                 "pair_max_memory_allocated_bytes": pair_peak,
                 "request_ms_median": {k: med(v) for k, v in lat.items()},
@@ -1618,8 +1780,9 @@ def main() -> int:
                 train_results[name] = train_run(torch, cfg, batches, 3, n_timed, kernels)
                 print(json.dumps({"train": {name: train_results[name]}}), flush=True)
 
-        recipe_steps = 150
-        print(f"# cut: the recipe runs {recipe_steps} steps (300 before), for the smoke's time")
+        recipe_steps = 100
+        print(f"# cut: the recipe runs {recipe_steps} steps (300, then 150 before), for the "
+              "smoke's time")
         with phase(f"11b recipe: model 1, 64^3, batch 2, LR 0.01, mirror, {recipe_steps} steps"):
             # tools/train_synthetic.py's recipe (init seed 0, sampler seed 0,
             # its 2500-step schedule), stopped early; then export, segment
@@ -1740,7 +1903,7 @@ def main() -> int:
             return {"conv3d_tap_merged": forwards * len(cfg_tap_layers(cfg, patch, n)),
                     "upconv2x": forwards * len(up_layers(cfg, patch, n))}
 
-        def times_of(eng, case_dir, runs=3):
+        def times_of(eng, case_dir, runs=2):
             """predict_case seconds of ``runs`` runs (the caller has warmed
             the engine up) and the peak device memory over them."""
             torch.cuda.synchronize()
@@ -1887,6 +2050,8 @@ def main() -> int:
                 if not finite or not all(finite) or int8_matmul.launches or got["conv_stage"]:
                     raise AssertionError(f"{name}: probabilities finite {finite}, int8 "
                                          f"launches {int8_matmul.launches}, launches {got}")
+                print("# cut: s/case over 2 runs after the counted one (3 before), "
+                      "for the smoke's time")
                 secs, peak_a = times_of(eng_a, brats_size)
                 prof_a = attention_profile(torch, lambda: segment(eng_a, brats_size),
                                            f"{name} sliding")
@@ -1980,7 +2145,9 @@ def main() -> int:
                        for seg, i in batched}
             # serial against batched, in turns
             walls = {"serial": [], "batched": []}
-            for which in ("serial", "batched", "batched", "serial"):
+            print("# cut: one serial and one batched run (two of each in turns before), "
+                  "for the smoke's time")
+            for which in ("serial", "batched"):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if which == "serial":
@@ -2035,6 +2202,178 @@ def main() -> int:
             if out.returncode != 0 or len(cli_agree) != 3 or min(cli_agree.values()) < 0.9999:
                 raise AssertionError(f"cli segment --batch-cases 2: {out.returncode} {cli_agree}"
                                      f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+
+        case200 = find_cases(flagship)[0]
+        seg200 = result.output_folder / f"{case200.case_id}_brats.nii.gz"  # phase 6b's labels
+        with phase("13a feature steps by device route (seed 200, 240x240x155, min of 2)"):
+            torch.cuda.empty_cache()
+            fr = feature_routes(flagship, seg200, "cuda", tmp / "routes")
+            host = fr["routes"]["0"]
+            for route, r in fr["routes"].items():
+                print(json.dumps({"feature_route": {
+                    "route": route, "total_s_min": r["total_s_min"],
+                    "host_total_s_min": host["total_s_min"], "total_s": r["total_s"],
+                    "steps_s_min": r["steps_s_min"], "host_steps_s_min": host["steps_s_min"],
+                    "summary_fields_off": r["summary_fields_off"]}}), flush=True)
+            for g in GROUPS:
+                d, h, o = fr["routes"][g]["total_s_min"], host["total_s_min"], fr["own_steps"][g]
+                print(f"group {g}: its steps {'+'.join(o['steps'])} {o['card_s']:.3f} s on the "
+                      f"card against {o['host_s']:.3f} s on the host; run_all_steps {d:.3f} s "
+                      f"with it alone on the card against {h:.3f} s "
+                      f"({'wins' if g in fr['winners'] else 'loses'})")
+            print(f"all groups: run_all_steps {fr['routes']['all']['total_s_min']:.3f} s against "
+                  f"{host['total_s_min']:.3f} s on the host; one upload per case serves the whole "
+                  "set, so a group joins it when its own steps run faster on the card")
+            print(f"MEASURED_WIN_GROUPS: committed {sorted(MEASURED_WIN_GROUPS)}; the groups that "
+                  f"won in this run {fr['winners']} (agree: "
+                  f"{sorted(MEASURED_WIN_GROUPS) == fr['winners']}); phase 10's served pair "
+                  "reads the other side of the decision", flush=True)
+            off = {r: v["summary_fields_off"] for r, v in fr["routes"].items()
+                   if v["summary_fields_off"]}
+            if off:
+                raise AssertionError(f"device-route summaries leave the host's tolerance: {off}")
+            # each group's device pass alone on uploaded volumes, min of 2, and
+            # the device route's peak memory above what the smoke holds
+            from braintpu_torch.features import devstats
+            from braintpu_torch.features.context import brain_mask_from
+
+            vols = load_case_volumes(case200)[0]
+            mods = {m: vols[i] for i, m in enumerate(("t1", "t1ce", "t2", "flair"))}
+            labels = np.round(nifti.load(seg200).get_fdata(dtype="float32")).astype("int32")
+            brain, wt = brain_mask_from(mods["t1"]), labels > 0
+            passes = {
+                "stats": lambda dv: devstats.compute_case_stats(mods, labels, brain, dev=dv),
+                "mass": lambda dv: devstats.compute_mass_effect_stats(mods["t1"], wt, brain, dev=dv),
+                "morph": lambda dv: devstats.compute_morphology_stats(mods["t1ce"], wt, dev=dv),
+                "artifacts": lambda dv: devstats.compute_artifact_stats(mods, brain, wt, dev=dv),
+                "parenchyma": lambda dv: devstats.compute_parenchyma_stats(
+                    mods["t1"], mods["flair"], brain, wt, dev=dv)}
+            secs = {k: [] for k in ("upload", *passes)}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                dv = devstats.DeviceVolumes(mods, labels, brain, device="cuda").block_until_uploaded()
+                secs["upload"].append(time.perf_counter() - t0)
+                for g, fn in passes.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn(dv)
+                    torch.cuda.synchronize()
+                    secs[g].append(time.perf_counter() - t0)
+                del dv
+            print(json.dumps({"feature_passes": {
+                "s_min": {k: min(v) for k, v in secs.items()}, "s": secs,
+                "peak_bytes_above_start": torch.cuda.max_memory_allocated() - base,
+                "note": "host clock around each compute_* call on resident volumes, synchronised; "
+                        "upload = DeviceVolumes (stack, int16 check, pinning, copy) until its "
+                        "event"}}), flush=True)
+            torch.cuda.empty_cache()
+
+        with phase("13b cli segment --trace-dir as a process, then cli profile-report"):
+            trace_dir = tmp / "trace13"
+            cli_env = {**os.environ, "GEMINI_API_KEY": ""}
+            out = subprocess.run(
+                [sys.executable, "-u", "-m", "braintpu_torch.cli", "segment", "--input",
+                 str(flagship), "--output", str(tmp / "out13"), "--checkpoints", str(root),
+                 "--models", "model1,model2", "--folds", "2", "--random-weights",
+                 "--trace-dir", str(trace_dir)],
+                cwd=ROOT, capture_output=True, text=True, timeout=600, env=cli_env)
+            if out.returncode != 0 or "capturing device trace to" not in out.stdout:
+                raise AssertionError(f"cli segment --trace-dir: {out.returncode}\n"
+                                     f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+            traces = sorted(trace_dir.glob("*.pt.trace.json"))
+            reports = {}
+            for line, top in (("XLA Ops", 1000), ("XLA Modules", 12)):
+                rep = subprocess.run(
+                    [sys.executable, "-m", "braintpu_torch.cli", "profile-report",
+                     str(trace_dir), "--line", line, "--top", str(top)],
+                    cwd=ROOT, capture_output=True, text=True, timeout=300, env=cli_env)
+                if rep.returncode != 0:
+                    raise AssertionError(f"profile-report --line {line!r}: {rep.returncode}\n"
+                                         f"{rep.stderr[-2000:]}")
+                reports[line] = rep.stdout.splitlines()
+            named = {k: any(k in ln for ln in reports["XLA Ops"])
+                     for k in ("conv_stage_kernel", "conv3d_tap_merged_kernel", "upconv2x_kernel")}
+            print(json.dumps({"profile_report": {
+                "segment_output": out.stdout.strip().splitlines()[-3:],
+                "trace_files": [t.name for t in traces],
+                "trace_bytes": [t.stat().st_size for t in traces],
+                "kernels_named": named, "xla_ops_head": reports["XLA Ops"][:14],
+                "xla_ops_total": reports["XLA Ops"][-1],
+                "xla_modules_head": reports["XLA Modules"]}}), flush=True)
+            if not all(named.values()):
+                raise AssertionError(f"profile-report does not name every kernel: {named}")
+
+        with phase("13c cli visualize and compare (seed 200); resize on the card vs the CPU"):
+            viz = tmp / "viz13"
+            import importlib.util
+
+            if importlib.util.find_spec("matplotlib") is None:
+                # the figures are host work: tests/test_torch_utils.py holds
+                # them (and the overlay arrays) to the reference
+                print("# cut: visualize and compare draw with matplotlib, which this machine "
+                      "lacks; the smoke checks that both stop with a message and holds "
+                      "create_rgb_overlay on seed 200 instead")
+                for argv in (["visualize", "--input", str(flagship), "--segmentation",
+                              str(seg200), "--output", str(viz)],
+                             ["compare", "--gt", str(case200.seg_path), "--pred", str(seg200),
+                              "--output", str(viz / "compare.png")]):
+                    try:
+                        cli_main(argv)
+                        raise AssertionError(f"{argv[0]} ran without matplotlib")
+                    except SystemExit as e:
+                        if "matplotlib" not in str(e):
+                            raise
+                from braintpu_torch.viz import create_rgb_overlay
+
+                z = int(np.argmax((nifti.load(seg200).get_fdata(dtype="float32") > 0)
+                                  .sum(axis=(0, 1))))
+                t1 = load_case_volumes(case200)[0][0]
+                ov = create_rgb_overlay(t1[:, :, z], nifti.load(seg200).get_fdata(
+                    dtype="float32")[:, :, z])
+                if ov.shape != t1.shape[:2] + (3,) or not np.isfinite(ov).all() \
+                        or not (0 <= ov.min() <= ov.max() <= 1):
+                    raise AssertionError(f"overlay of seed 200 z={z}: {ov.shape}")
+                pngs = []
+            else:
+                rc_v = cli_main(["visualize", "--input", str(flagship), "--segmentation",
+                                 str(seg200), "--output", str(viz)])
+                rc_c = cli_main(["compare", "--gt", str(case200.seg_path), "--pred", str(seg200),
+                                 "--output", str(viz / "compare.png"), "--background",
+                                 str(case200.modality_paths["flair"])])
+                pngs = sorted(viz.glob("*.png"))
+                bad = [p.name for p in pngs if p.read_bytes()[:4] != b"\x89PNG"]
+                if rc_v or rc_c or len(pngs) != 6 or bad:
+                    raise AssertionError(f"visualize / compare: rc {rc_v} {rc_c}, "
+                                         f"{[p.name for p in pngs]}, not PNG {bad}")
+            from braintpu_torch.pre import resize_nearest, resize_trilinear
+
+            vol = load_case_volumes(case200)[0]  # (4, 240, 240, 155) f32
+            labels = nifti.load(seg200).get_fdata(dtype="float32").astype("int32")
+            rs = {}
+            for new in ((160, 160, 103), (288, 288, 186)):
+                cpu = resize_trilinear(vol, new, device="cpu")
+                t0 = time.perf_counter()
+                resize_trilinear(vol, new, device="cpu")
+                cpu_s = time.perf_counter() - t0
+                card = resize_trilinear(vol, new, device="cuda")
+                err = (card.cpu() - cpu).abs().max().item()
+                tol = 1e-5 * cpu.abs().max().item()
+                vol_d = torch.from_numpy(vol).cuda()
+                card_ms = cuda_ms(torch, lambda: resize_trilinear(vol_d, new, device="cuda"))
+                near = resize_nearest(labels, new, device="cuda").cpu()
+                near_eq = bool(torch.equal(near, resize_nearest(labels, new, device="cpu")))
+                nbytes = vol.nbytes + 4 * vol.shape[0] * new[0] * new[1] * new[2]
+                rs["x".join(map(str, new))] = {
+                    "max_abs_err": err, "tol": tol, "card_ms": card_ms, "cpu_s": cpu_s,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "nearest_bit_equal": near_eq}
+                if not err <= tol or not near_eq:
+                    raise AssertionError(f"resize on the card vs the CPU at {new}: {err} > {tol} "
+                                         f"or nearest not equal ({near_eq})")
+            print(json.dumps({"visualize_compare": [p.name for p in pngs], "resize": rs}),
+                  flush=True)
 
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]

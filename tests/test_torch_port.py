@@ -68,7 +68,9 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
               "braintpu_torch.train.checkpoint", "braintpu_torch.train.data",
               "braintpu_torch.train.losses", "braintpu_torch.train.trainer",
               "braintpu_torch.models.axial", "braintpu_torch.models.modular_unet",
-              "braintpu_torch.models.plans"):
+              "braintpu_torch.models.plans", "braintpu_torch.features.devstats",
+              "braintpu_torch.utils.profiling", "braintpu_torch.utils.xprof",
+              "braintpu_torch.viz.overlays", "braintpu_torch.pre.resample"):
         assert m in mods
 
 
