@@ -5,6 +5,10 @@
     python -m braintpu_torch.cli segment --input CASE_DIR --output OUT \\
         --checkpoints results/trained_synth/checkpoints --models model1,model2 --folds 2
     python -m braintpu_torch.cli segment --input CASES --output OUT --batch-cases 2 ...
+    python -m braintpu_torch.cli segment --input CASES --output OUT --batch-cases 2 \
+        --dp-devices 2 [--device cpu] ...
+    python -m braintpu_torch.cli segment --input CASE_DIR --output OUT --dp-devices 2 \
+        --spatial-shard ...
     python -m braintpu_torch.cli segment --input CASE_DIR --output OUT --models axial \\
         --folds 1 --random-weights
     python -m braintpu_torch.cli evaluate --pred OUT/CASE.nii.gz --gt CASE_seg.nii.gz
@@ -22,6 +26,7 @@
     python -m braintpu_torch.cli build-kb --output kb.npz [--knowledge-dir DIR]
     python -m braintpu_torch.cli check-env [--checkpoints DIR]
     python -m braintpu_torch.cli train --model model1 --data CASES --checkpoint-dir CK
+    python -m braintpu_torch.cli train --data CASES --batch-size 2 --dp-devices 2 [--device cpu]
     python -m braintpu_torch.cli convert-checkpoint --input fold_0/model_final_checkpoint.model \
         --output ckpts/model1/fold_0.npz --config model1
     python -m braintpu_torch.cli convert-checkpoint --input nnUNet_results --output ckpts
@@ -47,6 +52,11 @@ top-level host ops.  One deliberate change:
 ``serve`` exits non-zero when its warm-up fails (the reference prints that
 the first request will compile and serves on), because warm-up is where
 the kernels build and load, and no job could succeed after it failed.
+
+``--dp-devices N`` (N > 1) runs N ranks (``parallel.launch.spawn``), each
+the same command on its share: on the card one card per rank with
+``nccl`` (N must not exceed the visible cards), with ``--device cpu`` N
+``gloo`` ranks on the CPU.  Rank 0 prints and writes the files.
 """
 
 from __future__ import annotations
@@ -61,7 +71,26 @@ import numpy as np
 __all__ = ["build_parser", "load_engine", "main"]
 
 
-def load_engine(args):
+def _engine_mode(args) -> str:
+    """``--mode``, or its default for the selected models (fullconv unless an
+    axial model is selected); exits on fullconv with an axial model."""
+    configs = _model_configs()
+    selected = [n.strip() for n in args.models.split(",") if n.strip()]
+    unknown = [n for n in selected if n not in configs]
+    if unknown:
+        raise SystemExit(f"unknown model(s) {unknown}; choose from {sorted(configs)}")
+    axial_selected = [n for n in selected if configs[n].axial_attention]
+    if args.mode is None:
+        args.mode = "sliding" if axial_selected else "fullconv"
+    elif args.mode == "fullconv" and axial_selected:
+        raise SystemExit(
+            f"--mode fullconv is incompatible with axial models "
+            f"{axial_selected} (patch-shape-bound positional embeddings); "
+            "use --mode sliding")
+    return args.mode
+
+
+def load_engine(args, mesh=None):
     """Build an InferenceEngine from ``--checkpoints``/``--models``/``--folds``.
 
     Each fold is read from the first of the reference's three sources that
@@ -80,7 +109,9 @@ def load_engine(args):
     ``load_engine`` chooses; ``--mode fullconv`` with an axial model exits
     with the reference's message.  ``InferenceEngine`` itself defaults to
     sliding.  Prints, per model, which folds were loaded and which were
-    drawn, and the engine's mode.
+    drawn, and the engine's mode.  ``mesh``: a ``parallel.mesh.Mesh`` of
+    this rank (the engine then runs on the mesh's device); ``--spatial-shard``
+    splits each case's X axis over it.
     """
     from .ckpt.convert import convert_torch_checkpoint
     from .ckpt.npz import load_pytree_npz, params_from_jax
@@ -88,18 +119,8 @@ def load_engine(args):
     from .models.unet3d import init_params
 
     configs = _model_configs()
+    _engine_mode(args)
     selected = [n.strip() for n in args.models.split(",") if n.strip()]
-    unknown = [n for n in selected if n not in configs]
-    if unknown:
-        raise SystemExit(f"unknown model(s) {unknown}; choose from {sorted(configs)}")
-    axial_selected = [n for n in selected if configs[n].axial_attention]
-    if args.mode is None:
-        args.mode = "sliding" if axial_selected else "fullconv"
-    elif args.mode == "fullconv" and axial_selected:
-        raise SystemExit(
-            f"--mode fullconv is incompatible with axial models "
-            f"{axial_selected} (patch-shape-bound positional embeddings); "
-            "use --mode sliding")
     nnunet_tree = None  # a raw nnU-Net results tree, discovered at first need
 
     def nnunet_fold(name: str, f: int):
@@ -154,7 +175,9 @@ def load_engine(args):
         mode=args.mode,
         et_min_voxels=0 if args.no_et_postprocess else 200,
         output_convention=getattr(args, "convention", None) or "internal",
-        device=args.device,
+        device=args.device if mesh is None else None,
+        mesh=mesh,
+        spatial_shard=bool(getattr(args, "spatial_shard", False)) and mesh is not None,
     )
 
 
@@ -165,26 +188,89 @@ def _model_configs():
             "axial-full": AXIAL_UNET_FULL}
 
 
-def cmd_segment(args) -> int:
-    import contextlib
+def _dp_devices(n: int, device, what: str = "device(s) visible") -> list:
+    """The ranks' devices for ``--dp-devices n``: ``n`` CPU ranks with
+    ``--device cpu``, else one card each (exits when fewer are visible)."""
+    import torch
 
+    if device is not None and torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        raise SystemExit(f"--dp-devices {n} but only {count} {what}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def cmd_segment(args) -> int:
     from .io.brats import find_cases
 
     cases = find_cases(args.input)
     if not cases:
         raise SystemExit(f"no complete BraTS case under {args.input}")
-    engine = load_engine(args)
-    out = Path(args.output)
-    out.mkdir(parents=True, exist_ok=True)
+    n = args.dp_devices
+    devices = _dp_devices(n, args.device) if n > 1 else None
+    mode = _engine_mode(args)
+    if args.spatial_shard:
+        if devices is None:
+            raise SystemExit("--spatial-shard requires --dp-devices N (N > 1)")
+        if mode != "fullconv":
+            raise SystemExit("--spatial-shard requires --mode fullconv")
     # the path is decided once, so the mode check fires before the warm-up
     # and the warm-up runs the batch shape the run will use
     use_batched = args.batch_cases > 0 and len(cases) > 1
-    if use_batched and engine.mode != "fullconv":
+    if use_batched and mode != "fullconv":
         raise SystemExit("--batch-cases requires --mode fullconv")
+    if use_batched and args.spatial_shard:
+        raise SystemExit(
+            "--batch-cases and --spatial-shard are mutually exclusive: "
+            "batching is case-data-parallel (one whole volume per chip), "
+            "spatial sharding splits ONE volume across chips. Drop one.")
+    if devices is not None and not args.spatial_shard and not use_batched:
+        print(
+            "# warning: --dp-devices builds a device mesh, but this run "
+            "takes the per-case path (single case or no --batch-cases) "
+            "which does not use it; add --batch-cases N with multiple "
+            "cases, or --spatial-shard, to engage the mesh")
+    if devices is None:
+        return _segment(args, cases, use_batched)
+    from .parallel.launch import spawn
+
+    print(f"# {n} ranks on {', '.join(devices)}", flush=True)
+    return max(spawn(_segment_rank, n, devices=devices, args=(args, use_batched)))
+
+
+def _rank_mesh(n: int):
+    """This rank's ``data = n`` mesh, and a context that silences its prints
+    unless it is rank 0."""
+    import contextlib
+    import io
+
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=n)
+    quiet = contextlib.nullcontext() if mesh.is_main else contextlib.redirect_stdout(io.StringIO())
+    return mesh, quiet
+
+
+def _segment_rank(args, use_batched: bool) -> int:
+    """One rank of ``segment --dp-devices N``: rank 0 prints and writes."""
+    from .io.brats import find_cases
+
+    mesh, quiet = _rank_mesh(args.dp_devices)
+    with quiet:
+        return _segment(args, find_cases(args.input), use_batched, mesh)
+
+
+def _segment(args, cases, use_batched: bool, mesh=None) -> int:
+    import contextlib
+
+    engine = load_engine(args, mesh=mesh)
+    out = Path(args.output)
+    out.mkdir(parents=True, exist_ok=True)
     if args.warmup:
         print(f"# warmup: {engine.warmup(batch_size=args.batch_cases if use_batched else 0):.1f}s")
     trace_ctx = contextlib.nullcontext()
-    if args.trace_dir:
+    if args.trace_dir and (mesh is None or mesh.is_main):
         from .utils.profiling import device_trace
 
         trace_ctx = device_trace(args.trace_dir)
@@ -203,9 +289,12 @@ def _run_segment(args, engine, cases, out: Path, use_batched: bool) -> int:
             print(f"{info['case_id']}: batch of {info['batch_size']} in "
                   f"{info['batch_seconds']:.1f}s  volumes={info['volumes_cm3']}")
         return 0
-    # the next case decodes on a host thread while the device segments this one
+    # the next case decodes on a host thread while the device segments this
+    # one; over a mesh rank 0 writes
+    writes = engine.mesh is None or engine.mesh.is_main
     for case, loaded in CasePrefetcher(cases):
-        seg, info = engine.predict_case(case, out / f"{case.case_id}.nii.gz", loaded=loaded)
+        seg, info = engine.predict_case(case, out / f"{case.case_id}.nii.gz" if writes else None,
+                                        loaded=loaded)
         print(f"{case.case_id}: {info['total_s']:.1f}s  volumes={info['volumes_cm3']}")
     return 0
 
@@ -521,9 +610,42 @@ def cmd_convert_checkpoint(args) -> int:
 
 def cmd_train(args) -> int:
     """``train``: the reference's ``cmd_train`` on the port's trainer (the
-    card unless ``--device cpu``).  Resumable: rerun with more ``--steps``."""
+    card unless ``--device cpu``).  Resumable: rerun with more ``--steps``.
+    ``--dp-devices N`` trains data-parallel over N ranks (the batch split
+    over them, the gradient averaged; rank 0 prints and writes the
+    checkpoints)."""
     import dataclasses
 
+    from .io.brats import find_cases
+
+    cfg = _model_configs()[args.model]
+    if args.patch:
+        cfg = dataclasses.replace(cfg, patch_size=tuple(int(v) for v in args.patch.split(",")))
+    if not [c for c in find_cases(args.data) if c.seg_path is not None]:
+        raise SystemExit(f"no cases with _seg ground truth under {args.data}")
+    n = args.dp_devices
+    if n <= 1:
+        return _train(args, cfg)
+    devices = _dp_devices(n, args.device, what="device(s)")
+    if args.batch_size % n:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be a multiple of "
+            f"--dp-devices {n} (per-device batch sharding)")
+    if cfg.dropout_rate > 0:
+        raise SystemExit("--dp-devices training does not support dropout_rate > 0")
+    from .parallel.launch import spawn
+
+    return max(spawn(_train_rank, n, devices=devices, args=(args, cfg)))
+
+
+def _train_rank(args, cfg) -> int:
+    """One rank of ``train --dp-devices N``: rank 0 prints and writes."""
+    mesh, quiet = _rank_mesh(args.dp_devices)
+    with quiet:
+        return _train(args, cfg, mesh)
+
+
+def _train(args, cfg, mesh=None) -> int:
     import torch
 
     from .io.brats import find_cases
@@ -533,21 +655,22 @@ def cmd_train(args) -> int:
     from .train.trainer import TrainConfig, create_train_state, fit
     from .utils.device import resolve_device
 
-    if args.dp_devices > 1:
-        raise SystemExit("--dp-devices > 1: data-parallel training is not ported yet (ROADMAP A3)")
-    cfg = _model_configs()[args.model]
-    if args.patch:
-        cfg = dataclasses.replace(cfg, patch_size=tuple(int(v) for v in args.patch.split(",")))
     cases = [c for c in find_cases(args.data) if c.seg_path is not None]
-    if not cases:
-        raise SystemExit(f"no cases with _seg ground truth under {args.data}")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     print(f"training {args.model} on {len(cases)} cases, patch {cfg.patch_size}, device {device}")
+    # under --dp-devices every rank draws the same global batches
     sampler = PatchSampler(cases, patch_size=cfg.patch_size, batch_size=args.batch_size,
                            seed=args.seed, augment=AugmentConfig() if args.augment else None)
     tc = TrainConfig(base_lr=args.lr, max_steps=args.steps)
     state = create_train_state(init_params(cfg, args.seed), tc, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)  # dropout draws
+    step_fn = None
+    if mesh is not None:
+        from .parallel import make_sharded_train_step, shard_train_state
+
+        state, layout = shard_train_state(state, cfg, mesh)
+        step_fn = make_sharded_train_step(mesh, cfg, tc, layout)
+        print(f"data-parallel training over mesh {dict(mesh.shape)}")
 
     def log(m):
         step = int(m["step"])
@@ -556,7 +679,7 @@ def cmd_train(args) -> int:
 
     state = fit(state, iter(sampler), cfg, tc, num_steps=args.steps,
                 checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
-                generator=generator, on_metrics=log)
+                generator=generator, on_metrics=log, step_fn=step_fn)
     print(f"done at step {int(state.step)}; checkpoints in {args.checkpoint_dir}")
     return 0
 
@@ -615,6 +738,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run one dummy case of the standard bucket (at the batch shape with "
                         "--batch-cases) before the first case")
+    p.add_argument("--dp-devices", type=int, default=0,
+                   help="shard each --batch-cases batch case-wise across this many ranks "
+                        "(one card each; with --device cpu, CPU ranks); fullconv mode only")
+    p.add_argument("--spatial-shard", action="store_true",
+                   help="with --dp-devices N and --mode fullconv: shard each single case's X "
+                        "axis across the ranks (halo exchange; per-rank memory and single-case "
+                        "latency instead of throughput)")
     p.add_argument("--trace-dir",
                    help="capture a torch.profiler trace of the run (host ops and the card's "
                         "kernels) into this directory (analyze with 'profile-report')")
@@ -698,7 +828,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp-devices", type=int, default=0,
-                   help="data-parallel training over this many devices (not ported yet)")
+                   help="data-parallel training: shard the batch over this many ranks (one "
+                        "card each; with --device cpu, CPU ranks); batch-size must divide evenly")
     p.add_argument("--device", default=None, help="torch device; default: the card (cuda)")
     p.set_defaults(fn=cmd_train)
 

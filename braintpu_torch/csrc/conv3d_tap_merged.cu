@@ -76,6 +76,7 @@ extern "C" int conv3d_tap_merged_launch(const void* x, const void* w, const void
                                         void* stream) {
   Args p = {};
   p.N = N, p.D = D, p.H = H, p.W = W, p.ci1 = ci, p.ci2 = 0, p.co = co;
+  p.d_lo = 0, p.d_hi = D;
   p.bias = static_cast<const float*>(b);
   p.y = static_cast<__nv_bfloat16*>(y);
   p.out_slope = slope;

@@ -86,6 +86,7 @@ struct Args {
   float slope1, slope2, out_slope;
   float* s1;
   float* s2;
+  int d_lo, d_hi;  // output planes computed, d_lo <= d < d_hi: y holds d_hi - d_lo of them
   int flags;
 };
 
@@ -617,7 +618,7 @@ __device__ __forceinline__ void body(const CUtensorMap* mx1, const CUtensorMap* 
   // together and find it in L2.
   const int col = blockIdx.x % p.col_tiles;
   const int sp = blockIdx.x / p.col_tiles;
-  const int d0 = sp / (p.tiles_w * p.tiles_h) * p.bd;
+  const int d0 = p.d_lo + sp / (p.tiles_w * p.tiles_h) * p.bd;
   const int h0 = (sp / p.tiles_w) % p.tiles_h * p.bh;
   const int w0 = sp % p.tiles_w * p.bw;
   const int n = blockIdx.y;
@@ -697,7 +698,7 @@ __device__ __forceinline__ void body(const CUtensorMap* mx1, const CUtensorMap* 
     vw[j] = w0 + R % p.bw;
     vh[j] = h0 + (R / p.bw) % p.bh;
     vd[j] = d0 + R / (p.bw * p.bh);
-    inside[j] = vd[j] < p.D && vh[j] < p.H && vw[j] < p.W;
+    inside[j] = vd[j] < p.d_hi && vh[j] < p.H && vw[j] < p.W;
   }
 
   float acc[NACC];
@@ -807,7 +808,8 @@ __device__ __forceinline__ void body(const CUtensorMap* mx1, const CUtensorMap* 
   long long vox[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    vox[i] = ((static_cast<long long>(n) * p.D + vd[i]) * p.H + vh[i]) * p.W + vw[i];
+    vox[i] = ((static_cast<long long>(n) * (p.d_hi - p.d_lo) + vd[i] - p.d_lo) * p.H + vh[i])
+             * p.W + vw[i];
   }
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -927,6 +929,7 @@ inline bool plan_ok(Args& p, int bd, int bh, int bw, int bm, int bn, int stages,
                     long long smem, bool stage, long long* grid_x) {
   p.bd = bd, p.bh = bh, p.bw = bw, p.stages = stages;
   if (p.N <= 0 || p.N > 65535 || p.D <= 0 || p.H <= 0 || p.W <= 0 || p.co <= 0) return false;
+  if (p.d_lo < 0 || p.d_hi > p.D || p.d_lo >= p.d_hi) return false;
   if (p.ci1 <= 0 || p.ci1 % 8 || p.ci2 < 0 || p.ci2 % 8 || p.co % 8) return false;
   if (bm != 64 && bm != 128 && !(bm == 256 && bn <= 64)) return false;
   if (bd < 1 || bh < 1 || bw < 1 || bd > 256 || bh > 256 || bw > 256) return false;
@@ -939,7 +942,8 @@ inline bool plan_ok(Args& p, int bd, int bh, int bw, int bm, int bn, int stages,
   p.tiles_h = (p.H + bh - 1) / bh;
   p.tiles_w = (p.W + bw - 1) / bw;
   p.col_tiles = (p.co + bn - 1) / bn;
-  *grid_x = static_cast<long long>((p.D + bd - 1) / bd) * p.tiles_h * p.tiles_w * p.col_tiles;
+  *grid_x = static_cast<long long>((p.d_hi - p.d_lo + bd - 1) / bd) * p.tiles_h * p.tiles_w *
+            p.col_tiles;
   return *grid_x > 0 && *grid_x <= 0x7fffffffLL;
 }
 

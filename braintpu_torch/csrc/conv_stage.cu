@@ -50,6 +50,12 @@
 //     straddles two samples (grid.y is the sample), and the atomics make
 //     the summation order, so the last bits of the sums, vary between
 //     runs.
+//   * The kernel computes output planes d_lo <= d < d_hi only (the wrapper
+//     passes 0, D unless asked otherwise): y holds those d_hi - d_lo
+//     planes, the sums cover them, and their 3x3x3 window reads input
+//     planes d_lo - 1 .. d_hi (zeros beyond the volume).  An X-sharded
+//     forward feeds the kernel its neighbours' boundary planes and asks for
+//     its own planes: the tiles cover them alone.
 // The plan (box, BM, BN, stages) comes from braintpu_torch/ops/
 // conv_plan.py.  Split-K for the deep layers and a persistent tile
 // schedule are later work.
@@ -96,15 +102,17 @@ struct Launch {
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t passed as an integer handle) with the
-// host's plan (box bd x bh x bw = bm rows, bn columns, stages, shared-memory
-// bytes).  Returns 0 when the launch was accepted, cudaErrorInvalidValue
-// for a plan or shape the kernel cannot take, else the error of
+// output planes [d_lo, d_hi) and the host's plan
+// (box bd x bh x bw = bm rows, bn columns, stages, shared-memory bytes).
+// Returns 0 when the launch was accepted, cudaErrorInvalidValue for a plan,
+// shape or window the kernel cannot take, else the error of
 // cudaFuncSetAttribute or of the launch.
 extern "C" int conv_stage_launch(const void* x1, const void* x2, const void* w, const void* b,
                                  const void* a1, const void* c1, const void* a2, const void* c2,
                                  void* y, void* s1, void* s2, int N, int D, int H, int W,
                                  int ci1, int ci2, int co, int a1_stride, int a2_stride,
-                                 float slope1, float slope2, float out_slope, int flags,
+                                 int d_lo, int d_hi, float slope1, float slope2,
+                                 float out_slope, int flags,
                                  int bd, int bh, int bw, int bm, int bn, int stages,
                                  long long smem, void* stream) {
   Args p = {};
@@ -123,6 +131,7 @@ extern "C" int conv_stage_launch(const void* x1, const void* x2, const void* w, 
   p.s1 = static_cast<float*>(s1);
   p.s2 = static_cast<float*>(s2);
   p.flags = flags;
+  p.d_lo = d_lo, p.d_hi = d_hi;  // plan_ok checks 0 <= d_lo < d_hi <= D
   long long grid_x = 0;
   if (!conv3d_wgmma::plan_ok(p, bd, bh, bw, bm, bn, stages, smem, true, &grid_x)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -24,11 +24,16 @@ in sliding mode only (fullconv refuses them, as in the reference), with the
 reference's mirror chunk of 8.
 
 :meth:`InferenceEngine.predict_cases_batched` runs several cases of one
-bucket through the fullconv ensemble at once, on one card.
+bucket through the fullconv ensemble at once.
 
-The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no card and no CPU request it raises.  Meshes and spatial sharding are not
-ported yet.
+Over a mesh of ranks (``mesh``, :mod:`braintpu_torch.parallel`; every rank
+runs the same calls on the same cases): ``predict_cases_batched`` gives
+each ``data`` rank its rows of every padded batch and gathers the label
+maps (rank 0 writes the files); with ``spatial_shard`` a single case's X
+axis is split over the ranks (:func:`.fullconv.fullconv_predict_spatial`).
+
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"`` (with
+a mesh: on the mesh's device); with no card and no CPU request it raises.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from ..labels.postprocess import et_min_size_postprocess
 from ..models.unet3d import UNetConfig, fold_batchnorm
 from ..pre.preprocess import preprocess_case
 from ..utils.device import resolve_device
-from .fullconv import fullconv_predict, predict_probs_fullconv
+from .fullconv import fullconv_predict, fullconv_predict_spatial, predict_probs_fullconv
 from .sliding_window import predict_probs, region_probs_to_labels
 
 __all__ = ["ModelBundle", "InferenceEngine", "calculate_volumes", "uncrop_labels", "resolve_device"]
@@ -156,6 +161,19 @@ class InferenceEngine:
     mode: str = "sliding"
     #: None = the card; "cpu" only when asked for.
     device: Union[None, str, torch.device] = None
+    #: optional ``parallel.mesh.Mesh`` with a ``data`` axis:
+    #: predict_cases_batched splits each case batch over it (case-level data
+    #: parallelism, no collective on the forward path).  Single-case calls
+    #: are unaffected unless ``spatial_shard`` is set.
+    mesh: Optional[Any] = None
+    #: with ``mesh`` and ``mode="fullconv"``: split each single case's X
+    #: axis over the mesh's ``data`` axis (halo exchange, statistics summed
+    #: over the slabs): per-rank activation memory and single-case latency
+    #: instead of batch throughput.  X is padded up to a multiple of (mesh
+    #: size x 2**num_pool) and sliced back; like fullconv's bucket padding
+    #: the extra background border shifts values near the volume edge, while
+    #: the sharding itself is exact (tested).
+    spatial_shard: bool = False
 
     def __post_init__(self) -> None:
         if self.mode not in ("sliding", "fullconv"):
@@ -164,6 +182,13 @@ class InferenceEngine:
             raise ValueError(f"ensemble={self.ensemble!r}: choose 'softmax' or 'label'")
         if len({m.cfg.num_classes for m in self.models}) != 1:
             raise ValueError("ensemble models must share num_classes")
+        if self.mesh is not None:
+            if self.device is not None and torch.device(self.device) != self.mesh.device:
+                raise ValueError(f"device {self.device} but the mesh's rank runs on "
+                                 f"{self.mesh.device}")
+            self.device = self.mesh.device
+        # the folds go to the device once per engine (on a mesh: each rank's
+        # own copy), never once per case
         self.device = resolve_device(self.device)
         self.models = [m.to(self.device) for m in self.models]
 
@@ -204,7 +229,9 @@ class InferenceEngine:
         t1 = time.perf_counter()
         per_model_probs = []
         for m in self.models:
-            if self.mode == "fullconv":
+            if self.mode == "fullconv" and self.spatial_shard and self.mesh is not None:
+                probs = self._spatial_fullconv(pre.data, m)
+            elif self.mode == "fullconv":
                 probs = predict_probs_fullconv(m.fold_params, pre.data, m.cfg, tta=self.tta,
                                                folded=m.folded)
             else:
@@ -222,15 +249,23 @@ class InferenceEngine:
 
     def _ensemble_labels(self, per_model_probs, pre) -> np.ndarray:
         """Model-ensemble probability maps -> internal-label segmentation."""
-        undo = pre.undo_slices
+        return self._finish_labels(self._paint_labels(per_model_probs)[pre.undo_slices])
+
+    def _paint_labels(self, per_model_probs) -> torch.Tensor:
+        """The models' probability maps -> the ensemble's uint8 label map on
+        the device, at the maps' shape."""
         # label mode applies with any model count: the repo-parity recipe
         # never runs the ET rule, so a single-model label run must not either
         if self.ensemble == "label":
-            segs = [region_probs_to_labels(p)[undo].cpu().numpy() for p in per_model_probs]
-            return np.round(sum(s.astype(np.float32) for s in segs) / len(segs)).astype(np.uint8)
-        mean_probs = sum(per_model_probs) / len(per_model_probs)
-        seg_internal = region_probs_to_labels(mean_probs)[undo].cpu().numpy()
-        if self.et_min_voxels:
+            segs = [region_probs_to_labels(p) for p in per_model_probs]
+            # round half to even, as numpy's round
+            return torch.round(sum(s.float() for s in segs) / len(segs)).to(torch.uint8)
+        return region_probs_to_labels(sum(per_model_probs) / len(per_model_probs))
+
+    def _finish_labels(self, seg: torch.Tensor) -> np.ndarray:
+        """Cropped-space labels to the host, with the ET rule in softmax mode."""
+        seg_internal = seg.cpu().numpy()
+        if self.ensemble == "softmax" and self.et_min_voxels:
             seg_internal = et_min_size_postprocess(
                 seg_internal, et_label=3, replace_with=2, min_voxels=self.et_min_voxels)
         return seg_internal
@@ -250,9 +285,30 @@ class InferenceEngine:
         conv = "internal" if self.output_convention == "internal" else "brats"
         return calculate_volumes(seg, voxel_cm3, et_label, conv)
 
+    def _spatial_fullconv(self, vol_cxyz: torch.Tensor, m: ModelBundle) -> torch.Tensor:
+        """One model's (X, Y, Z, K) probabilities with X split over the
+        mesh's ``data`` axis.  X is padded at the high end to a multiple of
+        (mesh size x 2**num_pool), so every slab boundary stays on the pool
+        grid, and sliced back: the contract is fullconv of the padded volume,
+        as a larger bucket would be."""
+        n = self.mesh.shape["data"]
+        div = 2**m.cfg.num_pool
+        x = vol_cxyz.movedim(0, -1)  # (X, Y, Z, C)
+        X = int(x.shape[0])
+        target = -(-X // (n * div)) * n * div
+        if target != X:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 0, 0, target - X))
+        probs = fullconv_predict_spatial(m.fold_params, x.contiguous(), m.cfg, self.mesh,
+                                         axis="data", num_mirror=8 if self.tta else 1,
+                                         folded=m.folded)
+        return probs[:X]
+
     def _batch_target(self, batch_size: int) -> int:
-        """The fixed batch of :meth:`predict_cases_batched` (no mesh yet:
-        ``batch_size`` itself)."""
+        """The fixed batch of :meth:`predict_cases_batched`: ``batch_size``,
+        rounded up to a multiple of the mesh's ``data`` axis."""
+        if self.mesh is not None:
+            nd = self.mesh.shape["data"]
+            return -(-batch_size // nd) * nd
         return batch_size
 
     def _batched_fullconv(self, vols: torch.Tensor, target: int) -> List[torch.Tensor]:
@@ -260,10 +316,15 @@ class InferenceEngine:
         case batch padded to ``target`` rows with copies of its last case, as
         the reference pads to keep one program per bucket (here it keeps one
         batch shape, and so one set of launch shapes, per bucket).  The
-        padded rows are the caller's to drop."""
+        padded rows are the caller's to drop.  With a mesh, this rank's rows
+        of the padded batch only (``target / data`` of them)."""
         n_pad = target - vols.shape[0]
         if n_pad > 0:
             vols = torch.cat([vols, vols[-1:].expand(n_pad, *vols.shape[1:])])
+        if self.mesh is not None:
+            comm = self.mesh.comm("data")
+            per = target // comm.size
+            vols = vols[comm.index * per:(comm.index + 1) * per]
         return [fullconv_predict(m.fold_params, vols, m.cfg, num_mirror=8 if self.tta else 1,
                                  folded=m.folded) for m in self.models]
 
@@ -284,6 +345,12 @@ class InferenceEngine:
         GroupNorm statistics stay per sample, so each case's labels are its
         per-case call's (up to ``conv_stage``'s atomic summation order).
 
+        With a mesh every rank calls this on the same cases: the batch is
+        rounded up to a multiple of the mesh's ``data`` axis, each rank
+        forwards its rows, the label maps are gathered, and rank 0 writes
+        the files (every rank returns the results).  ``spatial_shard`` is
+        refused, as in the reference.
+
         One batch is in flight while the host drains the previous one.  The
         reference gets that from its runtime's asynchronous dispatch; here each
         batch's forwards run on a side CUDA stream with an event recorded
@@ -302,7 +369,17 @@ class InferenceEngine:
             keep_volumes = output_dir is None
         if self.mode != "fullconv":
             raise ValueError("predict_cases_batched requires mode='fullconv'")
+        if self.spatial_shard:
+            # spatial sharding exists so one case's activations can exceed a
+            # single card; batching places one whole volume per rank
+            raise ValueError(
+                "predict_cases_batched is case-data-parallel and incompatible "
+                "with spatial_shard=True: batching places one whole volume "
+                "per chip, which defeats the reason to shard spatially. Use "
+                "per-case predict_case calls for spatially-sharded inference, "
+                "or spatial_shard=False for batched throughput.")
         div = max(2**m.cfg.num_pool for m in self.models)
+        writer = self.mesh is None or self.mesh.is_main
         if max_pending is None:
             max_pending = min(max(2 * batch_size, 8), 16)
         target = self._batch_target(batch_size)
@@ -350,12 +427,19 @@ class InferenceEngine:
             with on(drain):
                 if done is not None:
                     drain.wait_event(done)
+                if self.mesh is not None:  # every rank's rows of the padded batch
+                    from ..parallel.collectives import all_gather
+
+                    painted = all_gather(self._paint_labels(per_model), self.mesh.comm("data"))
                 for bi, (i, case, affine, zooms, pre) in enumerate(chunk):
-                    seg_internal = self._ensemble_labels([p[bi] for p in per_model], pre)
+                    if self.mesh is not None:
+                        seg_internal = self._finish_labels(painted[bi][pre.undo_slices])
+                    else:
+                        seg_internal = self._ensemble_labels([p[bi] for p in per_model], pre)
                     out = self._to_output_convention(seg_internal, pre)
                     info = {"case_id": case.case_id, "batch_seconds": device_span,
                             "batch_size": len(chunk), "volumes_cm3": self._case_volumes(out, zooms)}
-                    if output_dir is not None:
+                    if output_dir is not None and writer:
                         path = Path(output_dir) / f"{case.case_id}.nii.gz"
                         nifti.save(out.astype(np.uint8), path, affine=affine)
                         info["output_path"] = str(path)

@@ -48,12 +48,34 @@ conv and the activation); its other convs ``F.conv3d``; and whenever
 autograd records, its up-convs ``F.conv_transpose3d`` (``upconv2x`` has no
 gradient).  GroupNorm forwards that record gradients never take the
 deferred ``conv_stage`` path.
+
+**Sharded forwards** (``braintpu_torch.parallel``): inside
+:func:`sharded_forward`, the forward consults a :class:`Sharding`.
+
+* ``spatial``: this rank holds one slab of the X axis (dim 1).  Every
+  stride-1 3x3x3 conv takes its neighbours' boundary planes (zero padding
+  stays only at the global edges) and keeps its own output planes; the
+  stride-2 pooling convs take the left neighbour's last plane; the
+  GroupNorm / InstanceNorm statistics (``conv_stage``'s, restricted to the
+  rank's own output planes, and :func:`_spatial_group_stats`) are summed over
+  the shards and divided by the global voxel count.  The dispatch reads the
+  global shape, so a sharded layer takes the kernel its unsharded layer
+  takes.  Up-convs and the seg head need no halo.
+* ``data``: the batch is split; BatchNorm's training statistics are taken
+  over the global batch (two-pass, summed over the ranks; their gradient
+  too).
+* ``model``: the blocks and up-convs whose weights are in ``split`` hold
+  only their share of the output channels (column parallelism): the input's
+  gradient is summed over the ranks, the norm runs on the local channels,
+  and the outputs are gathered along channels.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +105,8 @@ __all__ = [
     "choose_impl",
     "choose_stage_impl",
     "apply_unet",
+    "Sharding",
+    "sharded_forward",
 ]
 
 
@@ -486,18 +510,72 @@ def choose_stage_impl(
     return "kernel" if stage_supported(tuple(shape), co, ci2) else "library"
 
 
+@dataclass(frozen=True)
+class Sharding:
+    """How one forward is spread over ranks; each field a
+    :class:`braintpu_torch.parallel.collectives.Comm` or None."""
+
+    spatial: Any = None  # X slabs (inference)
+    data: Any = None  # batch rows (BatchNorm training statistics)
+    model: Any = None  # column-parallel blocks
+    split: FrozenSet[int] = frozenset()  # ids of the weight tensors split over ``model``
+
+
+_SHARDING: contextvars.ContextVar = contextvars.ContextVar("braintpu_torch_sharding",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def sharded_forward(sharding: Sharding):
+    """Run the forwards inside the block under ``sharding``."""
+    token = _SHARDING.set(sharding)
+    try:
+        yield sharding
+    finally:
+        _SHARDING.reset(token)
+
+
+def _axis(name: str):
+    """The Comm of a sharded axis of the current forward, or None."""
+    sh = _SHARDING.get()
+    comm = None if sh is None else getattr(sh, name)
+    return comm if (comm is not None and comm.spread) else None
+
+
+def _split_comm(w: torch.Tensor):
+    """The model axis when ``w`` is a column-parallel weight, else None."""
+    sh = _SHARDING.get()
+    comm = _axis("model")
+    return comm if (comm is not None and id(w) in sh.split) else None
+
+
+def _halo_extend(x: torch.Tensor, comm) -> Tuple[torch.Tensor, int]:
+    """``x`` (N, L, H, W, C) with its neighbours' boundary planes along X
+    (none at the global edges); returns it and the offset of ``x`` in it."""
+    from ..parallel.collectives import halo_exchange
+
+    left, right = halo_exchange(x, comm, dim=1)
+    parts = [p for p in (left, x, right) if p is not None]
+    return torch.cat(parts, dim=1), (0 if left is None else 1)
+
+
+def _global_shape(x: torch.Tensor, comm) -> Tuple[int, ...]:
+    return (int(x.shape[0]), int(x.shape[1]) * comm.size, *(int(s) for s in x.shape[2:]))
+
+
 def _low_precision_on_cpu(x: torch.Tensor, dtype: torch.dtype) -> bool:
     return x.device.type == "cpu" and dtype != torch.float32
 
 
-def _conv3d_library(x, w, b, stride, dtype, negative_slope: Optional[float]):
+def _conv3d_library(x, w, b, stride, dtype, negative_slope: Optional[float], pad=None):
     """``F.conv3d`` on NDHWC/DHWIO tensors (channels-last views, no copies of x).
 
     On the CPU a bf16 config computes in f32 from the operands rounded to
     bf16 and rounds the result, as the card's bf16 conv (f32 accumulation)
-    does.
+    does.  ``pad`` defaults to SAME (``(k - 1) // 2`` per axis).
     """
-    pad = tuple((k - 1) // 2 for k in w.shape[:3])
+    if pad is None:
+        pad = tuple((k - 1) // 2 for k in w.shape[:3])
     if _low_precision_on_cpu(x, dtype):
         y = F.conv3d(x.to(dtype).float().permute(0, 4, 1, 2, 3),
                      w.to(dtype).float().permute(4, 3, 0, 1, 2), b.to(dtype).float(), stride, pad)
@@ -526,14 +604,49 @@ def _block(x, block, cfg: UNetConfig, stride) -> torch.Tensor:
 def _conv(x, block, stride, cfg: UNetConfig, negative_slope: Optional[float]) -> torch.Tensor:
     """One 3-D conv + bias (+ LeakyReLU) at the compute dtype, dispatched by
     :func:`choose_impl`: the band to the Hopper kernel (differentiable), the
-    rest to ``F.conv3d``."""
+    rest to ``F.conv3d``.  X-sharded (:class:`Sharding`), the conv reads its
+    neighbours' boundary planes and the dispatch reads the global shape."""
     w, b = block["w"], block["b"]
-    impl = choose_impl(tuple(x.shape), tuple(w.shape[:3]), stride, int(w.shape[4]),
-                       cfg.compute_dtype)
+    comm = _axis("spatial")
+    shape = tuple(x.shape) if comm is None else _global_shape(x, comm)
+    impl = choose_impl(shape, tuple(w.shape[:3]), stride, int(w.shape[4]), cfg.compute_dtype)
+    if comm is not None:
+        return _conv_spatial(x, w, b, stride, cfg.compute_dtype, negative_slope, comm,
+                             impl == "kernel")
     if impl == "kernel":
         return conv3d_tap_merged(x.to(cfg.compute_dtype).contiguous(),
                                  w.to(cfg.compute_dtype).contiguous(), b.float(), negative_slope)
     return _conv3d_library(x, w, b, stride, cfg.compute_dtype, negative_slope)
+
+
+def _conv_spatial(x, w, b, stride, dtype, negative_slope, comm, kernel: bool) -> torch.Tensor:
+    """One conv of an X slab.  Stride 1 (3x3x3): the slab with its
+    neighbours' boundary planes, the conv with SAME padding, the slab's own
+    output planes.  The stride-2 pooling conv (3x3x3, pad 1): output plane
+    ``o`` reads input planes ``2o - 1 .. 2o + 1``, so the slab (of even
+    length, starting at an even plane) takes its left neighbour's last plane
+    (zeros at the global edge) and the conv pads X by 0."""
+    if tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"X-sharded conv of kernel {tuple(w.shape[:3])}: only 3x3x3 is sharded")
+    L = int(x.shape[1])
+    if tuple(stride) == (1, 1, 1):
+        ext, lo = _halo_extend(x, comm)
+        if kernel:
+            y = conv3d_tap_merged(ext.to(dtype).contiguous(), w.to(dtype).contiguous(), b.float(),
+                                  negative_slope)
+        else:
+            y = _conv3d_library(ext, w, b, stride, dtype, negative_slope)
+        return y[:, lo:lo + L].contiguous()
+    if tuple(stride) != (2, 2, 2) or L % 2:
+        raise ValueError(f"X-sharded conv of stride {tuple(stride)} on a slab of {L} planes: "
+                         "only stride 2 on even slabs is sharded")
+    from ..parallel.collectives import halo_exchange
+
+    left, _ = halo_exchange(x, comm, dim=1, right=False)
+    if left is None:
+        left = torch.zeros_like(x[:, :1])
+    return _conv3d_library(torch.cat([left, x], dim=1), w, b, stride, dtype, negative_slope,
+                           pad=(0, 1, 1))
 
 
 def _records(*tensors) -> bool:
@@ -601,7 +714,8 @@ def _materialize(h, aff, dtype) -> torch.Tensor:
 
 def _spatial_group_stats(x: torch.Tensor, g: int):
     """Per-(sample, group) spatial mean and variance of ``x`` in f32 (the
-    reference's ``"sum"`` form: E[x^2] - E[x]^2 over f32 sums).
+    reference's ``"sum"`` form: E[x^2] - E[x]^2 over f32 sums).  X-sharded,
+    the sums are added over the shards and divided by the global count.
 
     Returns ``(mean, var)``, each (N, g).
     """
@@ -609,7 +723,19 @@ def _spatial_group_stats(x: torch.Tensor, g: int):
     xm = x.reshape(N, D * H * W, C).float()
     s1 = xm.sum(dim=1)
     s2 = (xm * xm).sum(dim=1)
-    return _moments(s1, s2, D * H * W, g)
+    return _moments(*_shard_sums(s1, s2, D * H * W), g)
+
+
+def _shard_sums(s1: torch.Tensor, s2: torch.Tensor, nvox: int):
+    """Per-sample sums of a slab -> the whole volume's, and its voxel count
+    (unchanged outside an X-sharded forward)."""
+    comm = _axis("spatial")
+    if comm is None:
+        return s1, s2, nvox
+    from ..parallel.collectives import all_reduce_stat
+
+    s = all_reduce_stat(torch.stack([s1, s2]), comm)
+    return s[0], s[1], nvox * comm.size
 
 
 def _moments(s1: torch.Tensor, s2: torch.Tensor, nvox: int, g: int):
@@ -641,27 +767,38 @@ def _deferred_block(state, skip_state, block, stride, cfg: UNetConfig):
     co, ci = int(w.shape[4]), int(w.shape[3])
     N, D, H, W, ci1 = h.shape
     g = cfg.group_norm_groups if cfg.norm == "group" else co
-    impl = choose_stage_impl(tuple(h.shape), tuple(w.shape[:3]), stride, co, ci - ci1,
-                             cfg.compute_dtype)
+    comm = _axis("spatial")
+    shape = tuple(h.shape) if comm is None else _global_shape(h, comm)
+    impl = choose_stage_impl(shape, tuple(w.shape[:3]), stride, co, ci - ci1, cfg.compute_dtype)
     if impl == "kernel":
+        # X-sharded: each input with its neighbours' planes (raw: the kernel
+        # applies the affine as it reads them), the slab's own output planes
+        # only, their statistics then summed over the shards
+        x1, lo = (h, 0) if comm is None else _halo_extend(h, comm)
         kw = {}
         if aff is not None:
             kw.update(a1=aff[0], c1=aff[1], in1_slope=aff[2])
         if skip_state is not None:
             h2, aff2 = skip_state
-            kw["x2"] = h2.to(cfg.compute_dtype).contiguous()
+            x2 = h2 if comm is None else _halo_extend(h2, comm)[0]
+            kw["x2"] = x2.to(cfg.compute_dtype).contiguous()
             if aff2 is not None:
                 kw.update(a2=aff2[0], c2=aff2[1], in2_slope=aff2[2])
-        y, s1, s2 = conv_stage(h.to(cfg.compute_dtype).contiguous(),
+        if comm is not None:
+            kw["out_planes"] = (lo, lo + D)
+        y, s1, s2 = conv_stage(x1.to(cfg.compute_dtype).contiguous(),
                                w.to(torch.bfloat16).contiguous(), b.float(), stats=True, **kw)
-        mean_g, var_g = _moments(s1, s2, D * H * W, g)
+        mean_g, var_g = _moments(*_shard_sums(s1, s2, D * H * W), g)
         return y, _affine_from_moments(mean_g, var_g, block, cfg, co)
     # the reference's fallback: materialize the input(s), library conv, and
     # the statistics of the rounded output
     hm = _materialize(h, aff, cfg.compute_dtype)
     if skip_state is not None:
         hm = torch.cat([hm, _materialize(*skip_state, cfg.compute_dtype)], dim=-1)
-    y = _conv3d_library(hm, w, b, stride, cfg.compute_dtype, None)
+    if comm is not None:
+        y = _conv_spatial(hm, w, b, stride, cfg.compute_dtype, None, comm, False)
+    else:
+        y = _conv3d_library(hm, w, b, stride, cfg.compute_dtype, None)
     mean_g, var_g = _spatial_group_stats(y, g)
     return y, _affine_from_moments(mean_g, var_g, block, cfg, co)
 
@@ -693,16 +830,20 @@ def _apply_unet_deferred(params, x, cfg: UNetConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _norm(y: torch.Tensor, block, cfg: UNetConfig, train: bool):
+def _norm(y: torch.Tensor, block, cfg: UNetConfig, train: bool, split: int = 1):
     """Normalize a conv output with f32 statistics and arithmetic (the
     reference's ``_norm``).  Returns ``(f32 tensor, new_stats or None)``.
 
     BatchNorm in training: ``F.batch_norm`` on the f32 upcast, batch
     statistics with the biased variance, and the running update
     ``(1 - m) * old + m * batch`` with the unbiased variance, on copies of the
-    block's statistics (returned as ``new_stats``).  BatchNorm at eval: the
-    running statistics.  GroupNorm / InstanceNorm: per-sample statistics of
-    the upcast from :func:`_spatial_group_stats`, under autograd.
+    block's statistics (returned as ``new_stats``); with the batch split over
+    ranks (:class:`Sharding` ``data``), the global batch's statistics
+    (:func:`_batch_moments`).  BatchNorm at eval: the running statistics.
+    GroupNorm / InstanceNorm: per-sample statistics of the upcast from
+    :func:`_spatial_group_stats`, under autograd.  ``split``: the block's
+    output channels are split that many ways (column parallelism), so this
+    rank holds ``groups / split`` of the groups.
     """
     x = y.float()
     scale, shift = block["scale"].float(), block["shift"].float()
@@ -711,6 +852,9 @@ def _norm(y: torch.Tensor, block, cfg: UNetConfig, train: bool):
         if train:
             mean = block["mean"].detach().float().clone()
             var = block["var"].detach().float().clone()
+            comm = _axis("data")
+            if comm is not None:
+                return _batch_norm_global(x, mean, var, scale, shift, cfg, comm)
             out = F.batch_norm(x.permute(0, 4, 1, 2, 3), mean, var, scale, shift, True,
                                cfg.bn_momentum, eps)
             return out.permute(0, 2, 3, 4, 1), {"mean": mean, "var": var}
@@ -719,12 +863,31 @@ def _norm(y: torch.Tensor, block, cfg: UNetConfig, train: bool):
     if cfg.norm not in ("group", "instance"):
         raise ValueError(f"unknown norm {cfg.norm!r}")
     N, C = x.shape[0], x.shape[-1]
-    g = cfg.group_norm_groups if cfg.norm == "group" else C
+    g = cfg.group_norm_groups // split if cfg.norm == "group" else C
     mean_g, var_g = _spatial_group_stats(x, g)  # (N, g) each
     mean = torch.repeat_interleave(mean_g, C // g, dim=1).reshape(N, 1, 1, 1, C)
     var = torch.repeat_interleave(var_g, C // g, dim=1).reshape(N, 1, 1, 1, C)
     # (x - mean) * (rsqrt * scale): one full-size product kept for autograd
     return (x - mean) * (torch.rsqrt(var + eps) * scale) + shift, None
+
+
+def _batch_norm_global(x, run_mean, run_var, scale, shift, cfg: UNetConfig, comm):
+    """Training BatchNorm over a batch split across ranks: the global
+    batch's per-channel mean, then its biased variance (two passes, each
+    summed over the ranks with its gradient), and the running update with
+    the unbiased variance, as ``F.batch_norm`` over the whole batch."""
+    from ..parallel.collectives import all_reduce_stat
+
+    n = x[..., 0].numel() * comm.size
+    mean = all_reduce_stat(x.sum(dim=(0, 1, 2, 3)), comm) / n
+    xc = x - mean
+    var = all_reduce_stat((xc * xc).sum(dim=(0, 1, 2, 3)), comm) / n
+    m = cfg.bn_momentum
+    with torch.no_grad():
+        run_mean.mul_(1 - m).add_(m * mean.detach())
+        run_var.mul_(1 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+    out = xc * torch.rsqrt(var + cfg.norm_eps) * scale + shift
+    return out, {"mean": run_mean, "var": run_var}
 
 
 def _dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -743,13 +906,22 @@ def _block_apply(x, block, cfg: UNetConfig, stride, train: bool, folded: bool,
     is Conv + LeakyReLU (:func:`_block`)."""
     if folded and cfg.norm == "batch":
         return _block(x, block, cfg, stride), None
+    tp = _split_comm(block["w"])  # column parallel: this rank's output channels
+    if tp is not None:
+        from ..parallel.collectives import copy_to_axis
+
+        x = copy_to_axis(x, tp)
     y = _conv(x, block, stride, cfg, None)
     if generator is not None:
         y = _dropout(y, cfg.dropout_rate, generator)
-    t, new_stats = _norm(y, block, cfg, train)
+    t, new_stats = _norm(y, block, cfg, train, split=1 if tp is None else tp.size)
     # where(t >= 0) as the reference (its gradient at 0 is 1); keeps a bool mask only
-    t = torch.where(t >= 0, t, t * cfg.negative_slope)
-    return t.to(cfg.compute_dtype), new_stats
+    t = torch.where(t >= 0, t, t * cfg.negative_slope).to(cfg.compute_dtype)
+    if tp is not None:
+        from ..parallel.collectives import gather_channels
+
+        t = gather_channels(t, tp)
+    return t, new_stats
 
 
 def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, folded: bool,
@@ -794,7 +966,13 @@ def _apply_unet_blocks(params, x, cfg: UNetConfig, train: bool, heads: bool, fol
     seg_logits = []
     last = len(params["decoder"]) - 1
     for u, stage in enumerate(params["decoder"]):
-        h = _upconv(h, stage["up"]["w"], dtype)
+        tp = _split_comm(stage["up"]["w"])
+        if tp is None:
+            h = _upconv(h, stage["up"]["w"], dtype)
+        else:  # column parallel, as a split block
+            from ..parallel.collectives import copy_to_axis, gather_channels
+
+            h = gather_channels(_upconv(copy_to_axis(h, tp), stage["up"]["w"], dtype), tp)
         dlev = cfg.num_pool - u - 1
         if "attn_block" in stage:
             h = attn_block(stage["attn_block"], h, dlev, "decoder_attn", u)

@@ -23,9 +23,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Set
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "bind", "build_all", "count_launch", "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "bind", "build_all", "count_launch", "load_library",
+           "launch_keys"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,6 +40,12 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launchers: Dict[str, Any] = {}
 _count_lock = threading.Lock()
+
+#: None, or ``{kernel name: set of launch keys}``: while a dict, every
+#: launch adds its wrapper's key (the arguments that decide the launch,
+#: enough to redraw random inputs of the same kind) to it, so a run can
+#: list the shapes it gave each kernel
+launch_keys: Optional[Dict[str, Set[tuple]]] = None
 
 
 def _nvcc() -> str:
@@ -151,8 +158,11 @@ def bind(name: str, argtypes: Sequence[Any]):
     return fn
 
 
-def count_launch(kernel) -> None:
+def count_launch(kernel, key: Optional[tuple] = None) -> None:
     """``kernel.launches += 1`` under a lock: jobs on several threads launch
-    kernels at once, and an unguarded read-modify-write can lose a count."""
+    kernels at once, and an unguarded read-modify-write can lose a count.
+    ``key`` goes into :data:`launch_keys` while that is a dict."""
     with _count_lock:
         kernel.launches += 1
+        if launch_keys is not None and key is not None:
+            launch_keys.setdefault(kernel.__name__, set()).add(key)

@@ -161,7 +161,7 @@ def _forward(x, w, b, negative_slope: Optional[float]) -> torch.Tensor:
     )
     if rc != 0:
         raise RuntimeError(f"conv3d_tap_merged launch failed: cudaError {rc} ({plan.describe()})")
-    _build.count_launch(conv3d_tap_merged)
+    _build.count_launch(conv3d_tap_merged, (N, D, H, W, ci, co, negative_slope))
     return y
 
 

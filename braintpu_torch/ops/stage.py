@@ -13,7 +13,12 @@ computes, on channels-last (NDHWC) bf16 tensors:
   never transformed);
 * with ``stats``: ``s1[n, c] = sum y`` and ``s2[n, c] = sum y^2`` per sample
   over the f32 ``y`` before any output activation;
-* ``out = bf16(leaky_{out_slope}(y))``.
+* ``out = bf16(leaky_{out_slope}(y))``,
+
+over the output planes ``out_planes = (lo, hi)`` of D only (default: all of
+them): ``out`` holds those ``hi - lo`` planes and the sums cover them.  An
+X-sharded forward feeds the kernel its neighbours' boundary planes and asks
+for its own.
 
 Affines are shared ``(ci,)`` or per sample ``(N, ci)``.  The CUDA source is
 ``csrc/conv_stage.cu``.
@@ -110,16 +115,19 @@ def conv_stage_ref(
     a1=None, c1=None, a2=None, c2=None,
     in1_slope: Optional[float] = None, in2_slope: Optional[float] = None,
     out_slope: Optional[float] = None, stats: bool = False,
+    out_planes: Optional[Tuple[int, int]] = None,
 ):
     """Plain version (the reference oracle's arithmetic): transform each
     input in f32 and round to bf16, concatenate, f32 ``F.conv3d`` + bias,
-    per-sample f32 sums, output LeakyReLU, bf16."""
+    the output planes ``out_planes``, per-sample f32 sums, output
+    LeakyReLU, bf16."""
     _check(x1, w, b, x2, a1, c1, a2, c2)
+    lo, hi = _window(out_planes, x1.shape[1])
     t = _transform(x1, a1, c1, in1_slope)
     if x2 is not None:
         t = torch.cat([t, _transform(x2, a2, c2, in2_slope)], dim=-1)
     y = F.conv3d(t.float().permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2), b,
-                 padding=1).permute(0, 2, 3, 4, 1)
+                 padding=1).permute(0, 2, 3, 4, 1)[:, lo:hi]
     s1 = s2 = None
     if stats:
         s1 = y.sum(dim=(1, 2, 3))
@@ -133,11 +141,19 @@ def conv_stage_ref(
 _AFF1, _SLOPE1, _AFF2, _SLOPE2, _OUT_SLOPE, _STATS = (1 << i for i in range(6))
 
 
+def _window(out_planes, D: int) -> Tuple[int, int]:
+    lo, hi = (0, int(D)) if out_planes is None else (int(v) for v in out_planes)
+    if not 0 <= lo < hi <= D:
+        raise ValueError(f"out_planes {out_planes} outside the {D} output planes")
+    return lo, hi
+
+
 def conv_stage(
     x1: torch.Tensor, w: torch.Tensor, b: torch.Tensor, x2: Optional[torch.Tensor] = None,
     a1=None, c1=None, a2=None, c2=None,
     in1_slope: Optional[float] = None, in2_slope: Optional[float] = None,
     out_slope: Optional[float] = None, stats: bool = False,
+    out_planes: Optional[Tuple[int, int]] = None,
 ):
     """One fused stride-1 SAME 3x3x3 stage (see the module docstring).
 
@@ -151,15 +167,17 @@ def conv_stage(
       out_slope: LeakyReLU slope of the output.
       stats: also return per-sample (N, co) f32 sums s1 and s2 of the
         pre-activation output.
+      out_planes: ``(lo, hi)``: compute output planes ``lo <= d < hi``
+        only (default: every plane); y and the sums cover those planes.
 
     Returns:
-      y (N, D, H, W, co) bf16, or (y, s1, s2) with ``stats``.  On the card
+      y (N, hi - lo, H, W, co) bf16, or (y, s1, s2) with ``stats``.  On the card
       s1 and s2 are summed with atomics, so their last bits vary from run to
       run.
     """
     _check(x1, w, b, x2, a1, c1, a2, c2)
     args = dict(x2=x2, a1=a1, c1=c1, a2=a2, c2=c2, in1_slope=in1_slope, in2_slope=in2_slope,
-                out_slope=out_slope, stats=stats)
+                out_slope=out_slope, stats=stats, out_planes=out_planes)
     if x1.device.type == "cpu":
         return conv_stage_ref(x1, w, b, **args)
     if x1.device.type != "cuda":
@@ -167,6 +185,7 @@ def conv_stage(
     N, D, H, W, ci1 = (int(s) for s in x1.shape)
     ci2 = 0 if x2 is None else int(x2.shape[-1])
     co = int(w.shape[4])
+    lo, hi = _window(out_planes, D)
     if not stage_supported(tuple(x1.shape), co, ci2):
         raise ValueError(f"conv_stage does not take x1 {tuple(x1.shape)}, ci2={ci2} -> co={co}")
     tensors = [x1, w, b] + [t for t in (x2, a1, c1, a2, c2) if t is not None]
@@ -178,7 +197,7 @@ def conv_stage(
     if plan is None:
         raise ValueError(f"no launch plan for x1 {tuple(x1.shape)}, ci2={ci2} -> co={co}")
     dev = x1.device
-    y = torch.empty((N, D, H, W, co), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((N, hi - lo, H, W, co), dtype=torch.bfloat16, device=dev)
     s1 = torch.zeros((N, co), dtype=torch.float32, device=dev) if stats else None
     s2 = torch.zeros((N, co), dtype=torch.float32, device=dev) if stats else None
     flags = ((_AFF1 if a1 is not None else 0) | (_SLOPE1 if in1_slope is not None else 0)
@@ -189,20 +208,23 @@ def conv_stage(
     rc = _build.bind("conv_stage", _ARGTYPES)(
         ptr(x1), ptr(x2), ptr(w), ptr(b), ptr(a1), ptr(c1), ptr(a2), ptr(c2),
         ptr(y), ptr(s1), ptr(s2),
-        N, D, H, W, ci1, ci2, co, stride(a1, ci1), stride(a2, ci2),
+        N, D, H, W, ci1, ci2, co, stride(a1, ci1), stride(a2, ci2), lo, hi,
         float(in1_slope or 0.0), float(in2_slope or 0.0), float(out_slope or 0.0), flags,
         *plan.launch_args(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"conv_stage launch failed: cudaError {rc} ({plan.describe()})")
-    _build.count_launch(conv_stage)
+    # the key: shapes, each affine's dimensions (2: per sample), slopes, window
+    dims = [None if a is None else a.dim() for a in (a1, a2)]
+    _build.count_launch(conv_stage, (N, D, H, W, ci1, ci2, co, *dims, in1_slope, in2_slope,
+                                     out_slope, bool(stats), lo, hi))
     return (y, s1, s2) if stats else y
 
 
 conv_stage.launches = 0
 
-#: 11 pointers; shape, channels and affine strides; three slopes; flags,
-#: then the plan; stream
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+#: 11 pointers; shape, channels, affine strides and the output planes;
+#: three slopes; flags, then the plan; stream
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_float] * 3
              + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])

@@ -87,7 +87,7 @@ def upconv2x(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                             torch._C._cuda_getCurrentRawStream(x.device.index))
     if rc != 0:
         raise RuntimeError(f"upconv2x launch failed: cudaError {rc} ({plan.describe()})")
-    _build.count_launch(upconv2x)
+    _build.count_launch(upconv2x, (int(N), int(D), int(H), int(W), int(ci), int(co)))
     return y
 
 

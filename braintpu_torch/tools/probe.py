@@ -3,6 +3,7 @@ chunk budget.
 
     python -m braintpu_torch.tools.probe int8 [--log PATH]
     python -m braintpu_torch.tools.probe attn [--log PATH]
+    python -m braintpu_torch.tools.probe stage [--trees DIR ...] [--log PATH]
 
 The port's counterpart of ``tools/tpu_probe.py int8``: the same four shapes
 and block arguments (a square 4096^3 product and three stage-GEMM shapes),
@@ -38,6 +39,21 @@ the largest difference from the output at the smallest budget (the chunking
 must not change a bit) per budget.  The module's budget
 (``models.axial._MAX_LOGIT_BYTES``) is the one these lines favour.
 
+``stage`` compares builds of the port's kernels on one card.  In each
+directory of ``--trees`` (default: this checkout), in the order given and
+each in a process of its own that imports ``braintpu_torch`` from there
+and builds its kernels there, it times ``conv_stage`` at the main path's
+heaviest shape (:data:`STAGE_SHAPE`: model 2's level-0 decoder stage of the
+224x224x128 bucket, per-sample affines, input slopes, statistics over every
+plane) by device time and by CUDA events, and the two-model fullconv
+forward of a random volume of that bucket (folded MODEL1_BN and
+MODEL2_GN_LARGE from ``init_params`` seeds, 2 folds each, 8 mirrors): the
+host-clock seconds of :data:`FULLCONV_RUNS` forwards after a warm-up, and
+``conv_stage``'s device milliseconds in one forward.  A tree only needs a
+``braintpu_torch/`` package (for example ``git archive <commit>
+braintpu_torch`` unpacked); giving the trees as parent, change, change,
+parent puts both builds under the same conditions.
+
 It writes nothing unless ``--log PATH`` is given, which appends the lines to
 PATH.  It needs a CUDA card and exits non-zero without one.
 """
@@ -48,21 +64,27 @@ import argparse
 import json
 import subprocess
 import sys
-from typing import Callable, Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.int8_probe import int8_matmul, int8_matmul_ref, int8_route
 
-__all__ = ["ATTN_BUDGETS_MIB", "INT8_SHAPES", "RAGGED_SHAPES", "HBM_BYTES_PER_S", "INT8_OPS_PER_S",
-           "cuda_ms", "device_ms", "int8_bound_ms", "measure_attention", "measure_int8",
-           "run_attn", "run_int8", "main"]
+__all__ = ["ATTN_BUDGETS_MIB", "FULLCONV_RUNS", "INT8_SHAPES", "RAGGED_SHAPES", "STAGE_SHAPE",
+           "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "cuda_ms", "device_ms", "int8_bound_ms",
+           "measure_attention", "measure_int8", "run_attn", "run_int8", "run_stage", "main"]
 
 #: logit budgets (MiB of one chunk's f32 logits) the ``attn`` probe compares
 ATTN_BUDGETS_MIB: Tuple[int, ...] = (64, 256, 512, 1024, 2048, 4096, 8192)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM
+
+#: (N, D, H, W, ci1, ci2, co) of the ``stage`` probe's conv_stage call
+STAGE_SHAPE: Tuple[int, ...] = (1, 224, 224, 128, 64, 64, 64)
+#: timed two-model fullconv forwards per tree (after one warm-up)
+FULLCONV_RUNS = 5
 
 #: (label, M, K, N, bm, bn, bk): the shapes and blocks of tools/tpu_probe.py's int8 probe
 INT8_SHAPES: Tuple[Tuple[str, int, int, int, int, int, int], ...] = (
@@ -275,12 +297,95 @@ def run_attn(log: Optional[str] = None) -> List[Dict[str, object]]:
     return records
 
 
+# the ``stage`` probe's body, run in each tree's own process: it uses only
+# names that older builds of the port have too, so a parent commit can run it
+_STAGE_CHILD = r"""
+import json, sys, time
+import torch
+from braintpu_torch.infer.engine import ModelBundle
+from braintpu_torch.infer.fullconv import fullconv_predict
+from braintpu_torch.models.unet3d import MODEL1_BN, MODEL2_GN_LARGE, init_params
+from braintpu_torch.ops import _build
+from braintpu_torch.ops.stage import conv_stage
+from braintpu_torch.tools.probe import cuda_ms, device_ms
+
+N, D, H, W, ci1, ci2, co = json.loads(sys.argv[1])
+runs = int(sys.argv[2])
+t0 = time.perf_counter()
+_build.build_all()
+build_s = time.perf_counter() - t0
+g = torch.Generator(device="cuda").manual_seed(0)
+rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+x1, x2 = rnd(N, D, H, W, ci1).bfloat16(), rnd(N, D, H, W, ci2).bfloat16()
+w = (rnd(3, 3, 3, ci1 + ci2, co) / (27 * (ci1 + ci2)) ** 0.5).bfloat16()
+b = rnd(co) * 0.1
+kw = dict(x2=x2, a1=rnd(N, ci1).abs() + 0.5, c1=rnd(N, ci1), a2=rnd(N, ci2).abs() + 0.5,
+          c2=rnd(N, ci2), in1_slope=0.01, in2_slope=0.01, stats=True)
+call = lambda: conv_stage(x1, w, b, **kw)
+rec = {"stage_device_ms": device_ms(call, "conv_stage_kernel"), "stage_event_ms": cuda_ms(call)}
+del x1, x2, kw
+bundles = [ModelBundle.from_folds(cfg, [init_params(cfg, s) for s in seeds]).to("cuda")
+           for cfg, seeds in ((MODEL1_BN, (0, 1)), (MODEL2_GN_LARGE, (1000, 1001)))]
+vol = rnd(D, H, W, 4)
+def forward():
+    with torch.inference_mode():
+        return [fullconv_predict(m.fold_params, vol, m.cfg, num_mirror=8, folded=m.folded)
+                for m in bundles]
+forward()
+torch.cuda.synchronize()
+secs = []
+for _ in range(runs):
+    t = time.perf_counter()
+    forward()
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t)
+rec.update(build_s=build_s, fullconv_s=secs,
+           fullconv_stage_device_ms=device_ms(forward, "conv_stage_kernel", iters=1, warmup=0))
+print("STAGE_PROBE " + json.dumps(rec), flush=True)
+"""
+
+
+def run_stage(trees: Sequence[str], log: Optional[str] = None) -> List[Dict[str, object]]:
+    """The ``stage`` probe: one record per entry of ``trees``, in order."""
+    import os
+    import statistics
+
+    card = _card()
+    records = []
+    for i, tree in enumerate(trees):
+        root = Path(tree).resolve()
+        env = dict(os.environ, PYTHONPATH=str(root))
+        out = subprocess.run([sys.executable, "-c", _STAGE_CHILD, json.dumps(STAGE_SHAPE),
+                              str(FULLCONV_RUNS)], cwd=root, env=env, capture_output=True,
+                             text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f"stage probe in {tree} failed (rc {out.returncode}):\n"
+                               f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        rec = json.loads(next(ln for ln in out.stdout.splitlines()
+                              if ln.startswith("STAGE_PROBE "))[len("STAGE_PROBE "):])
+        rec = {"probe": "stage", "order": i, "tree": str(tree), "shape": list(STAGE_SHAPE),
+               "fullconv_s_min": min(rec["fullconv_s"]),
+               "fullconv_s_median": statistics.median(rec["fullconv_s"]), **rec, **card}
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if log:
+            with open(log, "a") as f:
+                f.write(line + "\n")
+        records.append(rec)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="braintpu_torch.tools.probe", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("probe", choices=["int8", "attn"])
+    ap.add_argument("probe", choices=["int8", "attn", "stage"])
     ap.add_argument("--log", metavar="PATH", help="append the JSON lines to PATH")
+    ap.add_argument("--trees", nargs="+", metavar="DIR",
+                    help="stage: the checkouts to compare, in order (default: this one)")
     args = ap.parse_args(argv)
+    if args.probe == "stage":
+        run_stage(args.trees or [str(Path(__file__).resolve().parents[2])], args.log)
+        return 0
     if args.probe == "attn":
         return 0 if all(r["equal_across_budgets"] for r in run_attn(args.log)) else 1
     records = run_int8(args.log)

@@ -189,6 +189,7 @@ def fit(
     checkpoint_every: int = 250,
     generator: Optional[torch.Generator] = None,
     on_metrics: Optional[Callable[[Dict[str, float]], None]] = None,
+    step_fn: Optional[Callable] = None,
 ) -> TrainState:
     """Checkpointed training loop (restart-safe), as the reference's ``fit``.
 
@@ -196,32 +197,48 @@ def fit(
     restored step count shortens the loop), saves every ``checkpoint_every``
     steps and once at the end, and stops early when ``batches`` runs out.
     ``generator`` feeds dropout.  ``on_metrics`` gets each step's metrics as
-    floats (which waits for the device every step).
+    floats (which waits for the device every step).  ``step_fn(state, batch,
+    generator)`` defaults to :func:`train_step` and may be a sharded step
+    (``parallel.make_sharded_train_step``, called on every rank with the same
+    batches): its ``checkpoint`` then does the checkpoint I/O (the whole
+    state gathered, written by rank 0, read back by every rank).
     """
+    ckpt = getattr(step_fn, "checkpoint", None)
     mgr = None
     if checkpoint_dir is not None:
         from .checkpoint import CheckpointManager
 
         mgr = CheckpointManager(checkpoint_dir)
-        restored = mgr.restore(state)
+        restored = ckpt.restore(mgr, state) if ckpt is not None else mgr.restore(state)
         if restored is not None:
             state = restored
+    if step_fn is None:
+        step_fn = lambda st, b, gen: train_step(st, b, cfg, tc, gen)  # noqa: E731
+
+    def save():
+        if ckpt is not None:
+            ckpt.save(mgr, state)
+        else:
+            mgr.save(state)
+
     try:
         it = iter(batches)
         step = int(state.step)
+        saved = mgr.latest_step() if mgr is not None else None
         while step < num_steps:
             try:
                 batch = next(it)
             except StopIteration:
                 break  # a finite dataset ran out: stop (and checkpoint below)
-            state, metrics = train_step(state, batch, cfg, tc, generator)
+            state, metrics = step_fn(state, batch, generator)
             step += 1
             if on_metrics is not None:
                 on_metrics({k: float(v) for k, v in metrics.items()})
             if mgr is not None and step % checkpoint_every == 0:
-                mgr.save(state)
-        if mgr is not None and mgr.latest_step() != step:
-            mgr.save(state)
+                save()
+                saved = step
+        if mgr is not None and saved != step:
+            save()
     finally:
         if mgr is not None:
             mgr.close()

@@ -93,7 +93,19 @@ matplotlib is installed; without it both must stop with a message, and the
 overlay arrays are checked instead) and holds ``resize_trilinear`` /
 ``resize_nearest`` on the card to the CPU.  Phase 6d
 pins the host route (``BRAINTPU_DEVICE_FEATURES=0``): it compares two host
-EDTs.  Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
+EDTs.  Parallelism across devices (phase 14, :func:`sharded_phases`; the
+machine shows one card, so multi-rank runs are ``gloo`` ranks sharing it):
+14a runs the mirror-sharded and the X-sharded two-model fullconv of the
+seed-200 case on one ``nccl`` rank against the unsharded engine, 14b the
+mirror-sharded one on two ranks, 14c each model's X-sharded forward on two
+ranks (peak memory, halo and statistics traffic, launches per rank), 14d
+the data-parallel model-1 step at 128^3 x 2 against one process, 14e the
+patch runner and ``dryrun_multichip(2)``, 14f the rank bodies of
+``segment --dp-devices 2`` with ``--spatial-shard`` and with
+``--batch-cases 2``, 14g every kernel against its plain version at every
+launch key the sharded ranks recorded; phase 4 also holds ``conv_stage``'s
+output-plane window (an X slab's own planes) against the plain version.
+Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
 in the repository; cases and outputs go to a temporary directory.
@@ -119,7 +131,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 ROOT = Path(__file__).resolve().parent
 CKPTS = ROOT / "results" / "trained_synth" / "checkpoints"
@@ -264,6 +276,8 @@ def stage_errors(torch, got, ref, rows=None) -> dict:
     same f32 conv output in another order, with atomics on the card)."""
     y, s1, s2 = got
     ry, r1, r2 = ref
+    if y.shape != ry.shape:
+        raise AssertionError(f"conv_stage at {rows}: y {tuple(y.shape)}, plain {tuple(ry.shape)}")
     err = (y.float() - ry.float()).abs().max().item()
     tol = TOL * ry.float().abs().max().item()
     sum_abs = ry.float().abs().sum(dim=(1, 2, 3))
@@ -908,6 +922,363 @@ def feature_routes(case_dir: Path, seg_path: Path, device, out_dir: Path,
     return {"routes": record, "own_steps": own, "winners": winners}
 
 
+def check_stage_window(torch, shape, co, ci2, window, seed: int) -> dict:
+    """conv_stage over a window of output planes (what an X-sharded forward
+    asks for) against the plain version's planes and sums; correctness
+    only."""
+    from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
+
+    N, D, H, W, ci1 = shape
+    ci = ci1 + ci2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+    x1 = rnd(*shape).bfloat16()
+    x2 = rnd(N, D, H, W, ci2).bfloat16() if ci2 else None
+    w = (rnd(3, 3, 3, ci, co) / (27 * ci) ** 0.5).bfloat16()
+    b = rnd(co) * 0.1
+    aff = {"a1": rnd(N, ci1).abs() + 0.5, "c1": rnd(N, ci1)}
+    if ci2:
+        aff.update(a2=rnd(N, ci2).abs() + 0.5, c2=rnd(N, ci2))
+    kw = dict(x2=x2, in1_slope=0.01, in2_slope=0.01 if ci2 else None, stats=True,
+              out_planes=window, **aff)
+    got = conv_stage(x1, w, b, **kw)
+    ref = conv_stage_ref(x1, w, b, **kw)
+    torch.cuda.synchronize()
+    lo, hi = window
+    r = stage_errors(torch, got, ref, (shape, ci2, co, window))
+    r.update({"shape": [N, D, H, W, ci1, ci2, co], "out_planes": [lo, hi]})
+    return r
+
+
+def check_launch_key(torch, name: str, key: tuple, seed: int) -> dict:
+    """One kernel against its plain version on random inputs of the kind a
+    launch key records (``braintpu_torch.ops._build.launch_keys``: the
+    shapes, and for conv_stage the affines, slopes and statistics window);
+    correctness only, at the tolerances of phase 4."""
+    from braintpu_torch.ops.conv3d import conv3d_tap_merged, conv3d_tap_merged_ref
+    from braintpu_torch.ops.stage import conv_stage, conv_stage_ref
+    from braintpu_torch.ops.upconv import upconv2x, upconv2x_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=g)
+
+    def close(got, ref):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{name} disagrees at launch key {key}: {err} > {tol}")
+        return {"max_abs_err": err, "tol": tol}
+
+    if name == "conv3d_tap_merged":
+        N, D, H, W, ci, co, slope = key
+        x = rnd(N, D, H, W, ci).bfloat16()
+        w = (rnd(3, 3, 3, ci, co) / (27 * ci) ** 0.5).bfloat16()
+        b = rnd(co) * 0.1
+        return close(conv3d_tap_merged(x, w, b, slope), conv3d_tap_merged_ref(x, w, b, slope))
+    if name == "upconv2x":
+        N, D, H, W, ci, co = key
+        x = rnd(N, D, H, W, ci).bfloat16()
+        w = (rnd(ci, 2, 2, 2, co) / ci ** 0.5).bfloat16()
+        return close(upconv2x(x, w), upconv2x_ref(x, w))
+    N, D, H, W, ci1, ci2, co, d1, d2, sl1, sl2, slo, stats, lo, hi = key
+    aff = {}
+    for k, ci, dims in (("1", ci1, d1), ("2", ci2, d2)):
+        if dims is not None:
+            shape = (N, ci) if dims == 2 else (ci,)
+            aff.update({f"a{k}": rnd(*shape).abs() + 0.5, f"c{k}": rnd(*shape)})
+    x1 = rnd(N, D, H, W, ci1).bfloat16()
+    x2 = rnd(N, D, H, W, ci2).bfloat16() if ci2 else None
+    w = (rnd(3, 3, 3, ci1 + ci2, co) / (27 * (ci1 + ci2)) ** 0.5).bfloat16()
+    b = rnd(co) * 0.1
+    kw = dict(x2=x2, in1_slope=sl1, in2_slope=sl2, out_slope=slo, stats=stats,
+              out_planes=(lo, hi), **aff)
+    got, ref = conv_stage(x1, w, b, **kw), conv_stage_ref(x1, w, b, **kw)
+    if stats:
+        torch.cuda.synchronize()
+        return stage_errors(torch, got, ref, key)
+    return close(got, ref)
+
+
+def sharded_phases(torch, np, case_dir: Path, root: Path, tmp: Path, layers,
+                   pair_dirs: Sequence[Path]) -> dict:
+    """Phase 14: the parallel paths on the card (one card: every multi-rank
+    run is gloo ranks sharing cuda:0, so times are overheads, not scaling).
+
+    14a: one NCCL rank: the mirror-sharded and the X-sharded two-model
+    fullconv of ``case_dir`` against the unsharded engine (model 1's
+    probabilities bit-equal; model 2's within 4x the unsharded engine's own
+    run-to-run spread, from conv_stage's atomic sums; labels equal but
+    where that change of model 2 can reach a threshold).
+    14b: two gloo ranks: the mirror-sharded two-model fullconv (labels on
+    >= 0.9999 of voxels).  14c: two gloo ranks: the X-sharded forward of
+    each model against the unsharded one (labels on >= 0.999 of voxels for
+    model 1's trained fold, 0.99 for model 2's random one; against the f32
+    forward of the same weights, an error at most twice the unsharded bf16
+    forward's; peak memory per rank, halo and statistics bytes per forward,
+    launches per rank against the dispatch), and the time of one halo
+    exchange and one statistics all-reduce.  14d:
+    two gloo ranks: the data-parallel MODEL1_BN step at 128^3 x 2 against
+    the single-process step (loss rtol 1e-3).  14e: the patch runner on the
+    case, and ``dryrun_multichip(2)`` on the card.  14f: the engine's entry
+    points as ``segment --dp-devices 2`` runs them on each rank
+    (``cli._segment_rank``): ``--spatial-shard`` on ``case_dir`` and
+    ``--batch-cases 2`` over the two cases of ``pair_dirs``; launches per
+    rank against the dispatch, only rank 0 writes, its files' labels
+    against the unsharded engine's.  14g: every kernel against its plain
+    version at every launch key the ranks of 14b-14f recorded (the slab
+    shapes with their halo planes, conv_stage's windows, the N = 1 training
+    and patch shapes)."""
+    from braintpu_torch.graft_entry import dryrun_multichip
+    from braintpu_torch.io.brats import find_cases
+    from braintpu_torch.models.unet3d import MODEL1_BN
+    from braintpu_torch.parallel import launch
+    from braintpu_torch.parallel.launch import free_tcp_init, spawn
+    from braintpu_torch.parallel.scenarios import run, two_model_case
+
+    tap_layers, stage_layers, up_layers, m2 = layers
+    engine_argv = ["--checkpoints", str(root), "--models", "model1,model2", "--folds", "2",
+                   "--random-weights"]
+    argv = ["--input", str(case_dir), "--output", str(tmp / "out14"), *engine_argv]
+    pair_root = tmp / "pair14"
+    pair_root.mkdir()
+    for d in pair_dirs:  # two cases of one bucket
+        c = find_cases(d)[0]
+        (pair_root / c.case_id).symlink_to(c.folder, target_is_directory=True)
+    two = ["cuda:0", "cuda:0"]
+    out = {}
+
+    def max_diff(a, b):
+        return float(np.abs(a - b).max())
+
+    with phase("14a sharded two-model fullconv on one NCCL rank (seed 200)"):
+        torch.cuda.empty_cache()
+        launch.init_rank("cuda:0", "nccl", free_tcp_init(), rank=0, world_size=1)
+        try:
+            r = two_model_case(argv, str(case_dir), paths=("plain", "plain#2", "mirror",
+                                                            "spatial"))
+        finally:
+            torch.distributed.destroy_process_group()
+        plain = r["plain"]
+        spread = [max_diff(a, b) for a, b in zip(plain["probs"], r["plain#2"]["probs"])]
+        rep = {"bucket": r["bucket"], "route": r["route"],
+               "plain_s": plain["seconds"], "plain_again_s": r["plain#2"]["seconds"],
+               "model2_run_to_run_max_abs": spread[1]}
+        mean = (plain["probs"][0] + plain["probs"][1]) / 2  # the softmax ensemble's map
+        for path in ("mirror", "spatial"):
+            d = [max_diff(a, b) for a, b in zip(r[path]["probs"], plain["probs"])]
+            # model 2's statistics are atomic sums, so its maps move between
+            # runs (by up to d[1] here) and so may a label, but only where the
+            # two models' mean lies within d[1] / 2 of a region's threshold
+            differ = int((r[path]["labels"] != plain["labels"]).sum())
+            reach = int((np.abs(mean - 0.5) <= d[1] / 2 + 1e-6).any(axis=-1).sum())
+            rep[path] = {"s": r[path]["seconds"], "labels_differ": differ,
+                         "voxels_within_reach": reach,
+                         "model1_max_abs": d[0], "model2_max_abs": d[1],
+                         "launches": r[path]["launches"],
+                         "max_memory_allocated_bytes": r[path]["max_memory_allocated_bytes"]}
+            if differ > reach or d[0] != 0.0 or d[1] > max(4 * spread[1], 0.0):
+                raise AssertionError(f"14a {path} vs unsharded: {differ} labels differ ({reach} "
+                                     f"voxels within reach of model 2's change), model 1 "
+                                     f"{d[0]} (must be 0), model 2 {d[1]} (run-to-run "
+                                     f"{spread[1]})")
+        rep["plain_launches"] = plain["launches"]
+        print(json.dumps({"sharded_one_rank": rep}), flush=True)
+        out["14a"] = rep
+        base_labels, base_probs, bucket = plain["labels"], plain["probs"], r["bucket"]
+        del r, plain
+        torch.cuda.empty_cache()
+
+    with phase("14b-14e two gloo ranks on the card, started once: every scenario"):
+        # one start of the two rank processes (each start takes seconds)
+        one = ["--folds", "1", "--no-tta"]
+        plane = (1, bucket[0] // 2, bucket[1], bucket[2], 64)
+        specs = [("m", "two_model_case", dict(argv=argv, case_dir=str(case_dir),
+                                              paths=("mirror", "mirror#2")))]
+        specs += [(m, "two_model_case", dict(argv=argv + ["--models", m] + one,
+                                             case_dir=str(case_dir),
+                                             paths=("plain", "spatial", "plain#2", "spatial#2",
+                                                    "f32"),
+                                             return_probs=False,
+                                             diffs=(("spatial#2", "plain#2"),
+                                                    ("plain", "plain#2"), ("spatial#2", "f32"),
+                                                    ("plain#2", "f32"))))
+                  for m in ("model1", "model2")]
+        specs += [("t", "collective_times", dict(plane=plane, stats=(1, 64))),
+                  ("dp", "train", dict(cfg=MODEL1_BN, seed=0,
+                                       batches=("synth", 3, (2, 128, 128, 128), 0), data=2,
+                                       model=1, lr=1e-2, params_out=False, timed_from=1)),
+                  ("p", "patch_runner_case", dict(argv=argv + ["--models", "model1", "--folds",
+                                                               "1"],
+                                                  case_dir=str(case_dir), batch_size=2)),
+                  ("seg_spatial", "segment", dict(argv=["--input", str(case_dir), *engine_argv,
+                                                        "--spatial-shard"],
+                                                  out=str(tmp / "seg14_spatial"))),
+                  ("seg_batched", "segment", dict(argv=["--input", str(pair_root), *engine_argv,
+                                                        "--batch-cases", "2"],
+                                                  out=str(tmp / "seg14_batched")))]
+        ranks = spawn(run, 2, devices=two, args=(specs, True), timeout_s=900)
+
+    with phase("14b mirror-sharded two-model fullconv (two gloo ranks)"):
+        # the ranks are new processes: the second run is the one without first-use costs
+        got = ranks[0]["m"]["mirror#2"]
+        agree = float((got["labels"] == base_labels).mean())
+        want = {"conv3d_tap_merged": 4 * 2 * len(tap_layers(bucket)),
+                "conv_stage": 4 * 2 * len(stage_layers(bucket)),
+                "upconv2x": 4 * 2 * (len(up_layers(MODEL1_BN, bucket))
+                                     + len(up_layers(m2, bucket)))}
+        rep = {"route": ranks[0]["m"]["route"], "label_agreement": agree,
+               "model1_max_abs": max_diff(got["probs"][0], base_probs[0]),
+               "model2_max_abs": max_diff(got["probs"][1], base_probs[1]),
+               "s_per_rank": [rk["m"]["mirror#2"]["seconds"] for rk in ranks],
+               "first_run_s_per_rank": [rk["m"]["mirror"]["seconds"] for rk in ranks],
+               "unsharded_s": out["14a"]["plain_again_s"],
+               "launches_per_rank": [rk["m"]["mirror#2"]["launches"] for rk in ranks],
+               "launches_formula_per_rank": want,
+               "traffic_per_rank": [rk["m"]["mirror#2"]["traffic"] for rk in ranks],
+               "max_memory_allocated_bytes_per_rank": [
+                   rk["m"]["mirror#2"]["max_memory_allocated_bytes"] for rk in ranks]}
+        print(json.dumps({"mirror_two_ranks": rep}), flush=True)
+        out["14b"] = rep
+        if agree < 0.9999 or any(lk != want for lk in rep["launches_per_rank"]):
+            raise AssertionError(f"14b: labels {agree}, launches {rep['launches_per_rank']} "
+                                 f"!= {want}")
+
+    with phase("14c X-sharded forward of each model (two gloo ranks)"):
+        rep = {"collective_times": ranks[0]["t"], "halo_plane_shape": list(plane)}
+        for m, cfg in (("model1", MODEL1_BN), ("model2", m2)):
+            want = {"conv3d_tap_merged": len(tap_layers(bucket)) if m == "model1" else 0,
+                    "conv_stage": len(stage_layers(bucket)) if m == "model2" else 0,
+                    "upconv2x": len(up_layers(cfg, bucket))}
+            per_rank = []
+            for rk in ranks:
+                # the second run of each: the first pays the new process's first use
+                sp, pl = rk[m]["spatial#2"], rk[m]["plain#2"]
+                ma = {k: v[0] for k, v in rk[m]["max_abs"].items()}
+                by_plane = rk[m]["max_abs_by_plane"]["spatial#2 vs plain#2"][0]
+                half = len(by_plane) // 2  # the slab boundary: planes half - 1 | half
+                per_rank.append({
+                    "label_agreement": float((sp["labels"] == pl["labels"]).mean()),
+                    "probs_max_abs": ma["spatial#2 vs plain#2"],
+                    "unsharded_run_to_run_max_abs": ma["plain vs plain#2"],
+                    "f32_max_abs": ma["spatial#2 vs f32"],
+                    "unsharded_f32_max_abs": ma["plain#2 vs f32"],
+                    "probs_max_abs_boundary_planes": max(by_plane[half - 2:half + 2]),
+                    "probs_max_abs_other_planes": max(by_plane[:half - 2] + by_plane[half + 2:]),
+                    "spatial_s": sp["seconds"], "unsharded_s": pl["seconds"],
+                    "first_run_spatial_s": rk[m]["spatial"]["seconds"],
+                    "first_run_unsharded_s": rk[m]["plain"]["seconds"],
+                    "peak_bytes": sp["max_memory_allocated_bytes"],
+                    "unsharded_peak_bytes": pl["max_memory_allocated_bytes"],
+                    "traffic_per_forward": sp["traffic"], "launches": sp["launches"]})
+            # bf16: a slab's convs run at other shapes than the whole volume's,
+            # so a few outputs round the other way; model 2's random weights
+            # leave many voxels near 0.5 (the same check on the CPU at 64x32x32: 0.9985)
+            floor = 0.999 if m == "model1" else 0.99
+            # probabilities: against the f32 forward of the same weights (the
+            # exact function both bf16 forwards approximate), the X-sharded
+            # forward's largest error at most twice the unsharded one's: bf16
+            # convs at a slab's shapes round differently, a wrong halo or
+            # statistic would be an error of its own
+            bound = [2 * p["unsharded_f32_max_abs"] for p in per_rank]
+            rep[m] = {"per_rank": per_rank, "launches_formula": want, "label_floor": floor,
+                      "f32_error_bound": bound}
+            bad = [p for p, lim in zip(per_rank, bound) if p["launches"] != want
+                   or p["label_agreement"] < floor or not p["f32_max_abs"] <= lim]
+            if bad:
+                raise AssertionError(f"14c {m}: {bad} (launches want {want}, labels >= {floor}, "
+                                     f"error against f32 within {bound})")
+        print(json.dumps({"spatial_two_ranks": rep}), flush=True)
+        out["14c"] = rep
+
+    with phase("14d data-parallel MODEL1_BN step at 128^3 x 2 (two gloo ranks)"):
+        r = ranks[0]["dp"]
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(r["sharded"],
+                                                                          r["single"])]
+        rep = {"losses": [a["loss"] for a in r["sharded"]],
+               "single_losses": [b["loss"] for b in r["single"]], "loss_rel_err": rel,
+               "grad_norms": [a["grad_norm"] for a in r["sharded"]],
+               "single_grad_norms": [b["grad_norm"] for b in r["single"]],
+               "s_per_step": r["seconds_per_step"], "steps_timed": 2,
+               "launches_per_rank_timed": [rk["dp"]["launches"] for rk in ranks],
+               "traffic_per_rank_timed": [rk["dp"]["traffic"] for rk in ranks],
+               "max_memory_allocated_bytes": r["max_memory_allocated_bytes"]}
+        print(json.dumps({"dp_train_two_ranks": rep}), flush=True)
+        out["14d"] = rep
+        if max(rel) > 1e-3 or any(lk["conv3d_tap_merged"] == 0
+                                  for lk in rep["launches_per_rank_timed"]):
+            raise AssertionError(f"14d: loss rel err {rel} > 1e-3 or no tap launch: {rep}")
+
+    with phase("14e patch runner on the case (two gloo ranks); dryrun_multichip(2) on the card"):
+        pr = ranks[0]["p"]
+        pr_launches = [rk["p"]["launches"] for rk in ranks]
+        dry = dryrun_multichip(2)
+        rep = {"patch_runner": {k: pr[k] for k in ("shape", "max_abs_diff", "label_agreement",
+                                                   "seconds")},
+               "patch_runner_launches_per_rank": pr_launches, "dryrun": dry}
+        print(json.dumps({"patch_runner_and_dryrun": rep}), flush=True)
+        out["14e"] = rep
+        if pr["label_agreement"] < 0.999 or any(
+                lk["conv3d_tap_merged"] == 0 or lk["upconv2x"] == 0
+                for lk in rep["patch_runner_launches_per_rank"]):
+            raise AssertionError(f"14e patch runner: {rep}")
+        if not dry["line"].startswith("dryrun_multichip OK"):
+            raise AssertionError(f"14e dryrun: {dry}")
+
+    with phase("14f segment --dp-devices 2 rank bodies: --spatial-shard (seed 200), "
+               "--batch-cases 2 (seeds 50, 55)"):
+        rep = {}
+        pair_bucket = tuple(bucket_of(pair_dirs[0])[1])
+        # 2 folds x 8 mirrors per model on each rank: the X-sharded forwards of
+        # the one case, or the rank's one row of the batch of two
+        for key, b, floor in (("seg_spatial", bucket, 0.99),
+                              ("seg_batched", pair_bucket, 0.9999)):
+            r0 = ranks[0][key]
+            want = {"conv3d_tap_merged": 16 * len(tap_layers(b)),
+                    "conv_stage": 16 * len(stage_layers(b)),
+                    "upconv2x": 16 * (len(up_layers(MODEL1_BN, b)) + len(up_layers(m2, b)))}
+            rep[key] = {"bucket": list(b), "s_per_rank": [rk[key]["seconds"] for rk in ranks],
+                        "unsharded_s": r0["unsharded_s"],
+                        "launches_per_rank": [rk[key]["launches"] for rk in ranks],
+                        "launches_formula_per_rank": want,
+                        "written_per_rank": [rk[key]["written"] for rk in ranks],
+                        "label_agreement": r0["label_agreement"], "label_floor": floor,
+                        "max_memory_allocated_bytes_per_rank": [
+                            rk[key]["max_memory_allocated_bytes"] for rk in ranks],
+                        "traffic_per_rank": [rk[key]["traffic"] for rk in ranks]}
+            files = sorted(f"{c}.nii.gz" for c in r0["label_agreement"])
+            if (r0["written"] != files or any(rk[key]["written"] for rk in ranks[1:])
+                    or any(rk[key]["launches"] != want for rk in ranks)
+                    or min(r0["label_agreement"].values()) < floor
+                    or r0["batched"] != (key == "seg_batched")):
+                raise AssertionError(f"14f {key}: {rep[key]} (rank 0 writes {files})")
+        print(json.dumps({"segment_rank_bodies": rep}), flush=True)
+        out["14f"] = rep
+
+    with phase("14g every kernel vs plain at the sharded paths' launch keys"):
+        keys = {}  # the ranks' keys, each once, in order
+        for rk in ranks:
+            for name, ks in rk["launch_keys"].items():
+                keys.setdefault(name, {}).update(dict.fromkeys(tuple(k) for k in ks))
+        keys = {name: list(ks) for name, ks in keys.items()}
+        del ranks
+        rep = {}
+        for name in ("conv3d_tap_merged", "conv_stage", "upconv2x"):
+            if not keys.get(name):
+                raise AssertionError(f"14g: the sharded ranks recorded no launch of {name}")
+            errs = [check_launch_key(torch, name, k, seed=300 + i)
+                    for i, k in enumerate(keys[name])]
+            torch.cuda.empty_cache()
+            rep[name] = {"keys": len(errs), "max_abs_err": max(e["max_abs_err"] for e in errs),
+                         "launch_keys": [list(k) for k in keys[name]]}
+            if name == "conv_stage":
+                rep[name]["windowed_keys"] = sum(1 for k in keys[name] if (k[13], k[14])
+                                                 != (0, k[1]))
+        print(json.dumps({"sharded_launch_keys": rep}), flush=True)
+        out["14g"] = rep
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1067,6 +1438,13 @@ def main() -> int:
                     results[name].append(r)
                     print(json.dumps({name: r}), flush=True)
                 torch.cuda.empty_cache()
+            # the output-plane window of an X-sharded forward (phase 14): the
+            # heaviest level-0 shape of the main bucket as a two-rank slab
+            # with both halos, its own planes computed and summed
+            s0, co0, c20 = max(stage_layers(main_bucket), key=lambda k: k[0][2] * k[0][3])
+            slab = (s0[0], s0[1] // 2 + 2) + tuple(s0[2:])
+            stage_window = check_stage_window(torch, slab, co0, c20, (1, slab[1] - 1), seed=199)
+            print(json.dumps({"conv_stage_window": stage_window}), flush=True)
 
         with phase("4b int8_matmul vs plain (probe entry point)"):
             # the probe entry point is int8_matmul's only path: driven with
@@ -2375,6 +2753,12 @@ def main() -> int:
             print(json.dumps({"visualize_compare": [p.name for p in pngs], "resize": rs}),
                   flush=True)
 
+        # parallelism across devices, on the one card (phase 14)
+        torch.cuda.empty_cache()
+        sharded = sharded_phases(torch, np, flagship, root, tmp,
+                                 (tap_layers, stage_layers, up_layers, MODEL2_GN_LARGE),
+                                 pair_dirs=(brats_size, pair))
+
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
         return max(at_main, key=lambda r: r["bound_ms"])
@@ -2406,6 +2790,26 @@ def main() -> int:
                                     for m in (*TRAIN_MODELS, "axial")},
             "launches_axial_sliding": {m: c[name] for m, c in axial_counts.items()},
             "launches_batched": batched_launches[name],
+            "launches_sharded": {
+                "one_nccl_rank_mirror": sharded["14a"]["mirror"]["launches"][name],
+                "one_nccl_rank_spatial": sharded["14a"]["spatial"]["launches"][name],
+                "mirror_per_rank": [lk[name] for lk in sharded["14b"]["launches_per_rank"]],
+                "spatial_model1_per_rank": [p["launches"][name]
+                                            for p in sharded["14c"]["model1"]["per_rank"]],
+                "spatial_model2_per_rank": [p["launches"][name]
+                                            for p in sharded["14c"]["model2"]["per_rank"]],
+                "dp_train_2_steps_per_rank": [lk[name] for lk in
+                                              sharded["14d"]["launches_per_rank_timed"]],
+                "patch_runner_per_rank": [lk[name] for lk in
+                                          sharded["14e"]["patch_runner_launches_per_rank"]],
+                "segment_spatial_shard_per_rank": [
+                    lk[name] for lk in sharded["14f"]["seg_spatial"]["launches_per_rank"]],
+                "segment_batched_per_rank": [
+                    lk[name] for lk in sharded["14f"]["seg_batched"]["launches_per_rank"]],
+                "dryrun_rank0": sharded["14e"]["dryrun"]["launches"][name]},
+            "sharded_launch_keys_checked": {
+                k: v for k, v in sharded["14g"][name].items() if k != "launch_keys"},
+            **({"out_planes_check": stage_window} if name == "conv_stage" else {}),
         })
     cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
     line.append({

@@ -70,7 +70,11 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
               "braintpu_torch.models.axial", "braintpu_torch.models.modular_unet",
               "braintpu_torch.models.plans", "braintpu_torch.features.devstats",
               "braintpu_torch.utils.profiling", "braintpu_torch.utils.xprof",
-              "braintpu_torch.viz.overlays", "braintpu_torch.pre.resample"):
+              "braintpu_torch.viz.overlays", "braintpu_torch.pre.resample",
+              "braintpu_torch.parallel", "braintpu_torch.parallel.launch",
+              "braintpu_torch.parallel.collectives", "braintpu_torch.parallel.mesh",
+              "braintpu_torch.parallel.distributed", "braintpu_torch.parallel.scenarios",
+              "braintpu_torch.graft_entry"):
         assert m in mods
 
 
@@ -78,6 +82,9 @@ def test_no_port_file_names_jax_or_the_reference_package():
     files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cpp"))
              + [REPO / "chip_smoke.py"])
     assert PORT / "native" / "nifti_native.cpp" in files
+    for f in ("graft_entry.py", "parallel/launch.py", "parallel/collectives.py",
+              "parallel/mesh.py", "parallel/distributed.py", "parallel/scenarios.py"):
+        assert PORT / f in files
     imports_ref = re.compile(r"^\s*(import|from)\s+braintpu(\.|\s|$)", re.M)
     for f in files:
         text = f.read_text()
@@ -131,14 +138,20 @@ def test_engine_without_card_raises_unless_cpu_is_asked_for(monkeypatch):
 
 def test_engine_rejects_what_is_not_ported():
     """Sliding mode and the label ensemble are ported; a mode or ensemble
-    the engine does not have, and the reference's mesh options, are refused."""
+    the engine does not have is refused.  The reference's mesh options are
+    ported: ``spatial_shard`` is accepted, and the batched runner refuses it
+    with the reference's message."""
     bundle = _tiny_bundle()
     with pytest.raises(ValueError, match="mode"):
         InferenceEngine(models=[bundle], mode="axial", device="cpu")
     with pytest.raises(ValueError, match="ensemble"):
         InferenceEngine(models=[bundle], ensemble="vote", device="cpu")
-    with pytest.raises(TypeError, match="spatial_shard"):
-        InferenceEngine(models=[bundle], spatial_shard=True, device="cpu")
+    eng = InferenceEngine(models=[bundle], mode="fullconv", spatial_shard=True, device="cpu")
+    with pytest.raises(ValueError, match=re.escape(
+            "predict_cases_batched is case-data-parallel and incompatible with "
+            "spatial_shard=True: batching places one whole volume per chip, which defeats "
+            "the reason to shard spatially.")):
+        eng.predict_cases_batched([])
     # an unfolded BatchNorm forward is ported: eval BatchNorm with the running
     # statistics, equal at f32 to the folded forward (tests/test_torch_repairs.py
     # holds both against the reference's folded=False)
@@ -193,6 +206,27 @@ def test_cpu_call_runs_the_plain_version_and_counts_no_launch():
     assert conv3d_tap_merged.launches == before
     assert y.dtype == torch.bfloat16 and y.shape == (1, 4, 8, 9, 16)
     assert torch.equal(y, conv3d_tap_merged_ref(x, w, b, 0.01))
+
+
+def test_count_launch_records_launch_keys_only_while_asked():
+    """``ops._build.launch_keys``: while it is a dict every counted launch
+    adds its key (the chip smoke holds each kernel to its plain version at
+    the keys its sharded paths recorded); while it is None nothing is kept."""
+    def kernel():
+        pass
+
+    kernel.launches = 0
+    assert _build.launch_keys is None
+    _build.count_launch(kernel, (1, 2))
+    try:
+        _build.launch_keys = {}
+        for key in ((1, 2), (1, 2), (3, None, 0.01)):
+            _build.count_launch(kernel, key)
+        _build.count_launch(kernel)
+        assert _build.launch_keys == {"kernel": {(1, 2), (3, None, 0.01)}}
+    finally:
+        _build.launch_keys = None
+    assert kernel.launches == 5
 
 
 def _stage_args(N=1, D=3, H=8, W=9, ci1=8, ci2=8, co=16, device="cpu"):
@@ -741,3 +775,58 @@ def test_gpu_upconv_raises_on_a_plan_the_launcher_refuses(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError 1 "):
         upconv2x(x, w)
     assert upconv2x.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [(1, 9), (0, 1), (9, 10)])
+def test_gpu_stage_kernel_statistics_window(cuda, window):
+    """A window of output planes (an X-sharded forward's own planes): the
+    kernel's planes and their statistics against the plain version's."""
+    x1, w, b, x2, aff = _stage_args(1, 10, 16, 16, 64, 64, 64, device=cuda)
+    kw = dict(x2=x2, in1_slope=0.01, in2_slope=0.01, stats=True, out_planes=window, **aff)
+    y, s1, s2 = conv_stage(x1, w, b, **kw)
+    ry, r1, r2 = conv_stage_ref(x1, w, b, **kw)
+    torch.cuda.synchronize()
+    lo, hi = window
+    assert y.shape == ry.shape == (1, hi - lo, 16, 16, 64)
+    assert (y.float() - ry.float()).abs().max().item() <= 0.02 * ry.float().abs().max().item()
+    sum_abs = ry.float().abs().sum((1, 2, 3))
+    assert torch.all((s1 - r1).abs() <= 1e-3 * sum_abs + 1e-3)
+    assert torch.all((s2 - r2).abs() <= 1e-3 * r2 + 1e-3)
+
+
+@pytest.mark.gpu
+def test_gpu_sharded_fullconv_on_two_gloo_ranks_launches_the_kernels(cuda):
+    """Two gloo ranks sharing the card: the X-sharded forward of a bf16
+    GroupNorm net (``conv_stage`` with halos and the statistics' window,
+    ``upconv2x``) and of a folded BatchNorm net in the tap kernel's band,
+    and the mirror-sharded forward, each rank launching the kernels; labels
+    against the unsharded forward: on >= 0.999 of voxels for the mirrors
+    (the order of the mirror sum changes, and ``conv_stage``'s atomic
+    statistics vary from run to run: 0.9997 on the card), >= 0.99 for the
+    X-sharded forwards (bf16 convs at a slab's shapes round some outputs the
+    other way, and random weights leave many voxels near 0.5: 0.9983 on the
+    card)."""
+    from braintpu_torch.infer.fullconv import region_probs_to_labels
+    from braintpu_torch.parallel.launch import spawn
+    from braintpu_torch.parallel.scenarios import run
+
+    gn = unet3d.UNetConfig(base_features=16, max_features=64, num_pool=2, norm="group",
+                           group_norm_groups=4)
+    bn = unet3d.UNetConfig(base_features=64, max_features=64, num_pool=2, norm="batch")
+    rng = np.random.default_rng(0)
+    v_gn = rng.standard_normal((32, 32, 32, 4)).astype(np.float32)
+    v_bn = rng.standard_normal((64, 16, 16, 4)).astype(np.float32)
+    specs = [("gn", "spatial", dict(cfg=gn, seeds=[0], vol=v_gn, num_mirror=1)),
+             ("bn", "spatial", dict(cfg=bn, seeds=[0], vol=v_bn, num_mirror=1, fold_bn=True)),
+             ("mirror", "mirror", dict(cfg=gn, seeds=[0], vol=v_gn))]
+    ranks = spawn(run, 2, devices=["cuda:0", "cuda:0"], args=(specs,), timeout_s=600)
+    for r in ranks:
+        assert r["gn"]["route"] == "gloo-cuda-allreduce"
+        assert r["gn"]["launches"]["conv_stage"] > 0 and r["gn"]["launches"]["upconv2x"] > 0
+        assert r["bn"]["launches"]["conv3d_tap_merged"] > 0
+        assert r["mirror"]["launches"]["conv_stage"] > 0
+    for name, floor in (("gn", 0.99), ("bn", 0.99), ("mirror", 0.999)):
+        got, want = (torch.from_numpy(ranks[0][name][k]) for k in ("sharded", "plain"))
+        agree = (region_probs_to_labels(got) == region_probs_to_labels(want)).float().mean()
+        assert float(agree) >= floor, (name, float(agree))

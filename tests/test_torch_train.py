@@ -380,8 +380,10 @@ def test_exported_fold_segments_identically_in_both_engines(tmp_path):
 def test_cli_train_writes_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     """``cli train --device cpu`` (model 1's config made tiny) runs 2 steps
     and checkpoints, then resumes to 3; ``--model axial`` on the same
-    checkpoint directory refuses model 1's checkpoint, and ``--dp-devices``
-    exits with a message."""
+    checkpoint directory refuses model 1's checkpoint.  ``--dp-devices 2
+    --batch-size 2`` trains over two CPU ranks and resumes (the checkpoint is
+    the whole state: one process resumes it too), and ``--batch-size 1
+    --dp-devices 2`` exits with the reference's message."""
     monkeypatch.setattr(unet3d, "MODEL1_BN", dataclasses.replace(unet3d.MODEL1_BN, **KW))
     synthetic.write_synth_dataset(tmp_path / "data", 2, shape=(40, 36, 32))
     args = ["train", "--data", str(tmp_path / "data"), "--batch-size", "1", "--patch",
@@ -397,5 +399,15 @@ def test_cli_train_writes_checkpoints_and_resumes(tmp_path, monkeypatch, capsys)
     assert checkpoint.latest_step(tmp_path / "ck") == 3
     with pytest.raises(ValueError, match="architecture mismatch"):
         cli.main(args + ["--model", "axial"])
-    with pytest.raises(SystemExit, match="dp-devices"):
+    dp = args + ["--checkpoint-dir", str(tmp_path / "dp"), "--batch-size", "2",
+                 "--dp-devices", "2"]
+    assert cli.main(dp + ["--steps", "2"]) == 0
+    assert checkpoint.latest_step(tmp_path / "dp") == 2
+    assert cli.main(dp + ["--steps", "3"]) == 0
+    assert checkpoint.latest_step(tmp_path / "dp") == 3
+    assert cli.main(dp[:-2] + ["--steps", "4"]) == 0
+    assert "step       4" in capsys.readouterr().out
+    assert checkpoint.latest_step(tmp_path / "dp") == 4
+    with pytest.raises(SystemExit, match=r"--batch-size 1 must be a multiple of --dp-devices 2 "
+                                         r"\(per-device batch sharding\)"):
         cli.main(args + ["--dp-devices", "2"])
