@@ -47,8 +47,10 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 
 from ..models.unet3d import UNetConfig, decoder_channels, encoder_features
+from .npz import flatten_pytree, load_pytree_npz, save_pytree_npz, unflatten_pytree
 
-__all__ = ["convert_state_dict", "convert_torch_checkpoint", "load_torch_checkpoint"]
+__all__ = ["convert_state_dict", "convert_torch_checkpoint", "flatten_pytree", "load_pytree_npz",
+           "load_torch_checkpoint", "save_pytree_npz", "unflatten_pytree"]
 
 
 def _np(x) -> np.ndarray:

@@ -33,6 +33,7 @@ __all__ = [
     "sliding_window_predict",
     "predict_probs",
     "region_probs_to_labels",
+    "stack_folds",
 ]
 
 #: All 2^3 mirror combinations over the spatial axes (nnU-Net mirror_axes=(0,1,2)).
@@ -46,6 +47,35 @@ MIRROR_COMBOS: Tuple[Tuple[int, ...], ...] = (
     (1, 2),
     (0, 1, 2),
 )
+
+
+def _map_trees(fn, *trees):
+    """``fn`` over the leaves of same-structured dict/list/tuple trees."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _map_trees(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_map_trees(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _stack_leaf(*xs):
+    if all(isinstance(x, np.ndarray) for x in xs):
+        return np.stack(xs)
+    ts = [torch.as_tensor(x) for x in xs]
+    dev = next((t.device for t in ts if t.device.type != "cpu"), torch.device("cpu"))
+    return torch.stack([t.to(dev) for t in ts])
+
+
+def stack_folds(fold_params: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """Stack per-fold parameter trees along a new leading axis, leaf by leaf.
+
+    Numpy leaves stack with numpy and CPU tensors with torch, both on the
+    host; a leaf with a tensor on a card stacks on that card (host leaves
+    beside it are copied there).  The port's engines keep folds as lists
+    (``fold_params``) and never call this; it is the reference's API.
+    """
+    return _map_trees(_stack_leaf, *fold_params)
 
 
 def mirror_flag_groups(combos, group_size: int) -> np.ndarray:

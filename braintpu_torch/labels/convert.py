@@ -14,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
+    "INTERNAL_ED",
+    "INTERNAL_NCR",
+    "INTERNAL_ET",
     "remap_labels",
     "internal_to_brats2025",
     "internal_to_brats2021",
@@ -23,6 +26,10 @@ __all__ = [
     "brats2025_to_brats2021",
     "normalize_to_brats2025",
 ]
+
+INTERNAL_ED = 1
+INTERNAL_NCR = 2
+INTERNAL_ET = 3
 
 _INTERNAL_TO_2025 = (0, 2, 1, 3)  # index = internal label
 _INTERNAL_TO_2021 = (0, 2, 1, 4)

@@ -56,10 +56,15 @@ __all__ = [
 _MAX_LOGIT_BYTES = 1024 * 1024 * 1024
 
 
-def _he(rng: np.random.Generator, shape) -> torch.Tensor:
+def _he(rng: np.random.Generator, shape, draw_dtype: torch.dtype) -> torch.Tensor:
+    """He-normal f32 leaf: a standard normal draw at ``draw_dtype`` times
+    sqrt(2 / fan_in) in f32 (the reference scales by an f64 numpy scalar,
+    which promotes a bf16 draw to an f32 leaf)."""
     fan_in = shape[0]
-    vals = rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / fan_in))
-    return torch.from_numpy(vals)
+    vals = rng.standard_normal(shape, dtype=np.float32)
+    if draw_dtype != torch.float32:
+        vals = torch.from_numpy(vals).to(draw_dtype).float().numpy()
+    return torch.from_numpy(vals * np.float32(np.sqrt(2.0 / fan_in)))
 
 
 def init_axial_params(
@@ -68,19 +73,22 @@ def init_axial_params(
     shape_dhw: Tuple[int, int, int],
     heads: int,
     dim_head: int,
+    param_dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Any]:
-    """One axial attention's f32 parameters: per spatial axis a fused QKV
-    projection and an output projection (He-normal, from ``rng``), and zero
-    positional embeddings per axis."""
+    """One axial attention's parameters: per spatial axis a fused QKV
+    projection and an output projection (He-normal, drawn from ``rng`` at
+    ``param_dtype`` and scaled into f32 leaves, as the reference's), and zero
+    positional embeddings per axis at ``param_dtype``."""
     inner = heads * dim_head
     d, h, w = shape_dhw
     axes = []
     for _ in range(3):
-        qkv = _he(rng, (channels, 3 * inner))
-        axes.append({"qkv": qkv, "out": _he(rng, (inner, channels))})
+        qkv = _he(rng, (channels, 3 * inner), param_dtype)
+        axes.append({"qkv": qkv, "out": _he(rng, (inner, channels), param_dtype)})
     return {
-        "pos": {"d": torch.zeros(d, channels), "h": torch.zeros(h, channels),
-                "w": torch.zeros(w, channels)},
+        "pos": {"d": torch.zeros(d, channels, dtype=param_dtype),
+                "h": torch.zeros(h, channels, dtype=param_dtype),
+                "w": torch.zeros(w, channels, dtype=param_dtype)},
         "axes": axes,
     }
 
@@ -157,13 +165,18 @@ def apply_axial_attention(params: Dict[str, Any], x: torch.Tensor, dim_head: int
 
 
 def init_axial_block(rng: np.random.Generator, channels: int, shape_dhw: Tuple[int, int, int],
-                     heads: int, dim_head: int, bn: bool = True) -> Dict[str, Any]:
-    """AxialAttention3D block parameters: the attention and, with ``bn``,
-    a BatchNorm (scale 1, shift 0, running mean 0, running variance 1)."""
-    out: Dict[str, Any] = {"attn": init_axial_params(rng, channels, shape_dhw, heads, dim_head)}
+                     heads: int, dim_head: int, bn: bool = True,
+                     param_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """AxialAttention3D block parameters: the attention
+    (:func:`init_axial_params`) and, with ``bn``, a BatchNorm at
+    ``param_dtype`` (scale 1, shift 0, running mean 0, running variance 1)."""
+    out: Dict[str, Any] = {"attn": init_axial_params(rng, channels, shape_dhw, heads, dim_head,
+                                                     param_dtype)}
     if bn:
-        out["bn"] = {"scale": torch.ones(channels), "shift": torch.zeros(channels),
-                     "mean": torch.zeros(channels), "var": torch.ones(channels)}
+        out["bn"] = {"scale": torch.ones(channels, dtype=param_dtype),
+                     "shift": torch.zeros(channels, dtype=param_dtype),
+                     "mean": torch.zeros(channels, dtype=param_dtype),
+                     "var": torch.ones(channels, dtype=param_dtype)}
     return out
 
 

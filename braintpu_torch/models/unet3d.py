@@ -102,6 +102,8 @@ __all__ = [
     "upconv_layers",
     "init_params",
     "fold_batchnorm",
+    "param_count",
+    "estimate_activation_bytes",
     "choose_impl",
     "choose_stage_impl",
     "apply_unet",
@@ -451,6 +453,33 @@ def fold_batchnorm(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
             for stage in params["decoder"]
         ],
     }
+
+
+def param_count(params) -> int:
+    """Number of parameters: the sizes of every array leaf (tensor or numpy)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return int(np.prod(params.shape))
+
+
+def estimate_activation_bytes(cfg: UNetConfig, batch: int = 1) -> int:
+    """Rough peak activation footprint of one forward at ``cfg.patch_size``
+    (bytes), the reference's estimator: the encoder and decoder feature maps
+    summed at ``compute_dtype``'s width, each level shrunk by the product of
+    the pool kernel."""
+    itemsize = cfg.compute_dtype.itemsize
+    vox = int(np.prod(cfg.patch_size))
+    shrink = int(np.prod(cfg.pool_kernel))
+    total = 0
+    for d, f in enumerate(encoder_features(cfg)):
+        total += (vox // (shrink**d)) * f * cfg.conv_per_stage
+    total += (vox // (shrink**cfg.num_pool)) * bottleneck_features(cfg) * cfg.conv_per_stage
+    for u, ch in enumerate(decoder_channels(cfg)):
+        scale = shrink ** (cfg.num_pool - 1 - u)
+        total += (vox // scale) * (2 * ch["skip"] + ch["out"])
+    return total * batch * itemsize
 
 
 def choose_impl(
@@ -1039,8 +1068,8 @@ def apply_unet(
     cfg: UNetConfig,
     train: bool = False,
     deep_supervision: bool = False,
-    folded: bool = False,
     generator: Optional[torch.Generator] = None,
+    folded: bool = False,
 ):
     """Forward pass.
 
@@ -1054,13 +1083,13 @@ def apply_unet(
         update) and dropout active (where ``generator`` is given and
         ``cfg.dropout_rate > 0``).
       deep_supervision: return every decoder head, full resolution first.
+      generator: the ``torch.Generator`` dropout draws from (on ``x``'s
+        device); it takes the place of the reference's ``rng`` key.
       folded: a BatchNorm model's norms are folded into the convs (False by
         default, as in the reference: the norms then run in the forward,
         with the running statistics unless ``train``).  A block that still
         carries running statistics raises under ``folded=True``.  GroupNorm
         and InstanceNorm models have nothing to fold and ignore it.
-      generator: the ``torch.Generator`` dropout draws from (on ``x``'s
-        device).
 
     Returns:
       eval mode: (N, D, H, W, num_classes) f32 logits of the final head.

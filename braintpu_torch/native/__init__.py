@@ -64,13 +64,16 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libbraintpu_nifti-{h.hexdigest()[:16]}.so"
 
 
-def build_native() -> Path:
-    """Compile the library if it is not built yet; returns its path.
+def build_native(force: bool = False) -> Path:
+    """Compile the library if it is not built yet (with ``force``, even if
+    it is); returns its path.
 
     Raises ``RuntimeError`` with the compiler's output when the build fails.
+    A process that has loaded the library keeps the copy it loaded: the new
+    one is renamed into place beside it.
     """
     out = library_path()
-    if out.exists():
+    if out.exists() and not force:
         return out
     gxx = shutil.which("g++")
     if gxx is None:

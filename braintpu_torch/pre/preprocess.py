@@ -5,8 +5,9 @@ Counterpart of ``braintpu/pre/preprocess.py``:
 1. **Crop to nonzero** (host, numpy + scipy): brain mask = union over
    channels of ``vol != 0``, hole-filled; crop all channels to its bounding
    box.
-2. **Pad** (host) centered with zeros so every axis is >= the patch size and,
-   with ``multiple=``, a multiple of it (fullconv buckets).
+2. **Pad** (host) centered (zeros, or any other ``np.pad`` mode) so every
+   axis is >= the patch size and, with ``multiple=``, a multiple of it
+   (fullconv buckets).
 3. **Masked z-score** per channel over the brain mask, background exactly 0,
    as torch on the engine's device.
 
@@ -124,14 +125,16 @@ def zscore_masked_np(data: np.ndarray, mask: np.ndarray) -> np.ndarray:
 def pad_to_patch(
     data: np.ndarray,
     patch_size: Sequence[int],
+    mode: str = "constant",
     multiple: Optional[int] = None,
 ) -> Tuple[np.ndarray, Tuple[slice, ...]]:
     """Center-pad spatial axes of a (C, X, Y, Z) stack up to >= patch_size.
 
     Returns ``(padded, undo_slices)`` where ``undo_slices`` indexes the
     original extent inside the padded array (spatial axes only).  Lower pad
-    = diff // 2 (nnU-Net's ``pad_nd_image``).  ``multiple`` rounds each
-    target axis up to a multiple.
+    = diff // 2 (nnU-Net's ``pad_nd_image``); ``mode`` is ``np.pad``'s
+    (zeros by default).  ``multiple`` rounds each target axis up to a
+    multiple.
     """
     spatial = np.array(data.shape[1:])
     target = np.maximum(spatial, np.array(patch_size))
@@ -141,7 +144,7 @@ def pad_to_patch(
     hi = target - spatial - lo
     pads = [(0, 0)] + [(int(l), int(h)) for l, h in zip(lo, hi)]
     undo = tuple(slice(int(l), int(l + s)) for l, s in zip(lo, spatial))
-    return np.pad(data, pads), undo
+    return np.pad(data, pads, mode=mode), undo
 
 
 @dataclass
@@ -151,18 +154,23 @@ class PreprocessResult:
     data: torch.Tensor  # (C, X', Y', Z') normalized f32, padded, on the device
     undo_slices: Tuple[slice, ...]  # crop of padding (spatial)
     crop: CropInfo  # crop of brain bbox vs original volume
+    affine: Optional[np.ndarray] = None
+    zooms: Optional[Tuple[float, ...]] = None
 
 
 def preprocess_case(
     data: np.ndarray,
     patch_size: Sequence[int] = (128, 128, 128),
+    affine: Optional[np.ndarray] = None,
+    zooms: Optional[Tuple[float, ...]] = None,
     pad_multiple: Optional[int] = None,
     device: Union[None, str, torch.device] = None,
 ) -> PreprocessResult:
     """Crop -> pad -> masked z-score on ``device`` (``None``: the card; raises
     when there is none, as :func:`braintpu_torch.utils.device.resolve_device`).
 
-    ``data``: float (C, X, Y, Z) in canonical modality order.
+    ``data``: float (C, X, Y, Z) in canonical modality order.  ``affine``
+    and ``zooms`` ride along into the result unchanged.
     ``pad_multiple``: round padded axes up to this multiple (fullconv).
     """
     device = resolve_device(device)
@@ -175,4 +183,4 @@ def preprocess_case(
     padded_mask, _ = pad_to_patch(mask[None], patch_size, multiple=pad_multiple)
     norm = zscore_masked(
         torch.from_numpy(padded_raw).to(device), torch.from_numpy(padded_mask[0]).to(device))
-    return PreprocessResult(norm, undo, info)
+    return PreprocessResult(norm, undo, info, affine, zooms)

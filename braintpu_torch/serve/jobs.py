@@ -188,9 +188,14 @@ class JobStore:
             return None
         events_path = out_dir / "events.jsonl"
         summary_path = out_dir / "pipeline_summary.json"
+        summary = None
         if summary_path.exists():
-            with open(summary_path) as f:
-                summary = json.load(f)
+            try:
+                with open(summary_path) as f:
+                    summary = json.load(f)
+            except json.JSONDecodeError:
+                pass  # the pipeline is writing it: read the journal below meanwhile
+        if summary is not None:
             if summary.get("status") == "completed":
                 return {
                     "status": "done",

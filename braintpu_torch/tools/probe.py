@@ -1,9 +1,10 @@
-"""Probes on the card: the port's int8 kernel, and the axial attention's
-chunk budget.
+"""Probes on the card: the port's int8 kernel, the axial attention's chunk
+budget, builds of ``conv_stage`` side by side, and trained model 2.
 
     python -m braintpu_torch.tools.probe int8 [--log PATH]
     python -m braintpu_torch.tools.probe attn [--log PATH]
     python -m braintpu_torch.tools.probe stage [--trees DIR ...] [--log PATH]
+    python -m braintpu_torch.tools.probe trained2 [--checkpoints DIR] [--log PATH]
 
 The port's counterpart of ``tools/tpu_probe.py int8``: the same four shapes
 and block arguments (a square 4096^3 product and three stage-GEMM shapes),
@@ -54,6 +55,28 @@ host-clock seconds of :data:`FULLCONV_RUNS` forwards after a warm-up, and
 braintpu_torch`` unpacked); giving the trees as parent, change, change,
 parent puts both builds under the same conditions.
 
+``trained2`` runs trained model 2 (``<checkpoints>/model2/fold_0.npz``,
+read by the port's own loader) through the card's kernels on seed 200's
+synthetic case at 240x240x155 (fullconv bucket 192x192x128, bf16 as the CLI
+runs) and prints one JSON line with three parts:
+
+* ``forward``: one model-2 forward of that fold with the kernels
+  (``conv_stage``, ``upconv2x``) against the same fold's plain forward in
+  f32 on the card (no TTA): the largest probability difference, the label
+  agreement over the bucket and over the voxels either calls tumor, and
+  each forward's launches (the f32 forward launches none);
+* ``engine``: ``segment``'s engine with ``--models model1,model2 --folds 1``
+  (both trained; fullconv, 8-flip TTA): seconds per case (3 after a
+  warm-up, each split into preprocessing, the forwards with the labels'
+  readback, and the decode with the rest), Dice for WT/TC/ET against the
+  generator's ground truth, and the label agreement with the reference's
+  committed two-fold-per-model segmentation of the same case
+  (``results/flagship_trained``; information only, the fold counts differ);
+* ``launches``: each kernel's launches in one engine case beside the
+  dispatch's formula (forwards x the kernel layers of the bucket).
+
+It refuses to run, with a message, when fold 0 of model 2 is absent.
+
 It writes nothing unless ``--log PATH`` is given, which appends the lines to
 PATH.  It needs a CUDA card and exits non-zero without one.
 """
@@ -73,7 +96,8 @@ from ..ops.int8_probe import int8_matmul, int8_matmul_ref, int8_route
 
 __all__ = ["ATTN_BUDGETS_MIB", "FULLCONV_RUNS", "INT8_SHAPES", "RAGGED_SHAPES", "STAGE_SHAPE",
            "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "cuda_ms", "device_ms", "int8_bound_ms",
-           "measure_attention", "measure_int8", "run_attn", "run_int8", "run_stage", "main"]
+           "measure_attention", "measure_int8", "run_attn", "run_int8", "run_stage", "run_trained2",
+           "main"]
 
 #: logit budgets (MiB of one chunk's f32 logits) the ``attn`` probe compares
 ATTN_BUDGETS_MIB: Tuple[int, ...] = (64, 256, 512, 1024, 2048, 4096, 8192)
@@ -375,14 +399,174 @@ def run_stage(trees: Sequence[str], log: Optional[str] = None) -> List[Dict[str,
     return records
 
 
+def _kernel_layers(cfg, bucket: Tuple[int, int, int]) -> Dict[str, int]:
+    """Kernel launches of one N = 1 bf16 forward of ``cfg`` at ``bucket``,
+    as the dispatch decides them (the layer lists of ``models.unet3d``)."""
+    from ..models import unet3d as U
+
+    dt = cfg.compute_dtype
+    if cfg.norm == "batch":
+        main = sum(U.choose_impl(s, (3, 3, 3), st, co, dt) == "kernel"
+                   for s, st, co in U.conv_layers(cfg, bucket))
+        key = "conv3d_tap_merged"
+    else:
+        main = sum(U.choose_stage_impl(s, (3, 3, 3), st, co, c2, dt) == "kernel"
+                   for s, st, co, c2 in U.deferred_layers(cfg, bucket))
+        key = "conv_stage"
+    ups = sum(U.upconv_supported(s, co) for s, co in U.upconv_layers(cfg, bucket))
+    return {key: main, "upconv2x": ups}
+
+
+def run_trained2(checkpoints: str, log: Optional[str] = None) -> Dict[str, object]:
+    """The ``trained2`` probe (module docstring); returns its record."""
+    import dataclasses
+    import statistics
+    import tempfile
+    import time
+
+    from ..ckpt.npz import load_pytree_npz, params_from_jax
+    from ..cli import build_parser, load_engine
+    from ..infer.engine import ModelBundle
+    from ..infer.fullconv import fullconv_predict
+    from ..infer.sliding_window import region_probs_to_labels
+    from ..io import nifti
+    from ..io.brats import find_cases, load_case_volumes
+    from ..labels.convert import internal_to_brats2025, normalize_to_brats2025
+    from ..metrics.segmentation import evaluate_segmentation
+    from ..models.unet3d import MODEL1_BN, MODEL2_GN_LARGE
+    from ..ops.conv3d import conv3d_tap_merged
+    from ..ops.stage import conv_stage
+    from ..ops.upconv import upconv2x
+    from ..pre.preprocess import preprocess_case
+    from ..train.synthetic import write_synth_case
+    from ..utils.device import resolve_device
+
+    fold0 = Path(checkpoints) / "model2" / "fold_0.npz"
+    if not fold0.is_file():
+        raise SystemExit(f"probe trained2: {fold0} is absent; this probe runs trained model 2 "
+                         "and needs its fold 0")
+    dev = resolve_device(None)  # the card; raises without one
+    root = Path(__file__).resolve().parents[2]
+    flagship = root / "results" / "flagship_trained" / "BraTS-SYN-00200-000" / \
+        "BraTS-SYN-00200-000.nii.gz"
+    kernels = {"conv3d_tap_merged": conv3d_tap_merged, "conv_stage": conv_stage,
+               "upconv2x": upconv2x}
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    rec: Dict[str, object] = {"probe": "trained2", "checkpoint": str(fold0), **_card()}
+    with tempfile.TemporaryDirectory(prefix="braintpu_torch_trained2_") as tmp:
+        case_dir = write_synth_case(Path(tmp) / "in", "BraTS-SYN-00200-000", seed=200,
+                                    shape=(240, 240, 155))
+        case = find_cases(case_dir)[0]
+        data, _, _ = load_case_volumes(case)
+
+        # (a) one forward, kernels (bf16) against the plain version in f32
+        params = params_from_jax(load_pytree_npz(fold0), MODEL2_GN_LARGE)
+        div = 2**MODEL2_GN_LARGE.num_pool
+        vol = preprocess_case(data, patch_size=(div,) * 3, pad_multiple=div,
+                              device=dev).data.movedim(0, -1).contiguous()
+        bucket = tuple(int(s) for s in vol.shape[:3])
+        forward: Dict[str, object] = {"bucket": list(bucket)}
+        probs = {}
+        for label, cfg in (("kernels_bf16", MODEL2_GN_LARGE),
+                           ("plain_f32", dataclasses.replace(MODEL2_GN_LARGE,
+                                                             compute_dtype=torch.float32))):
+            bundle = ModelBundle.from_folds(cfg, [params]).to(dev)
+            reset()
+            # the f32 forward in f32: no TF32 in cuDNN's convolutions or matmuls
+            tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                with torch.inference_mode():
+                    probs[label] = fullconv_predict(bundle.fold_params, vol, cfg, num_mirror=1,
+                                                    folded=bundle.folded)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            forward[f"launches_{label}"] = counts()
+            del bundle
+        k, f = probs["kernels_bf16"], probs["plain_f32"]
+        lk, lf = region_probs_to_labels(k), region_probs_to_labels(f)
+        tumor = (lk > 0) | (lf > 0)
+        forward.update(
+            max_abs_prob_err=(k - f).abs().max().item(),
+            label_agreement=(lk == lf).float().mean().item(),
+            tumor_voxels=int(tumor.sum().item()),
+            tumor_label_agreement=((lk == lf) & tumor).sum().item() / max(int(tumor.sum()), 1),
+            launches_formula=_kernel_layers(MODEL2_GN_LARGE, bucket))
+        del probs, k, f, lk, lf, tumor, vol
+        rec["forward"] = forward
+
+        # (b) the two-model engine, both trained, one fold each
+        engine = load_engine(build_parser().parse_args(
+            ["segment", "--input", str(case_dir), "--output", str(Path(tmp) / "out"),
+             "--checkpoints", str(checkpoints), "--models", "model1,model2", "--folds", "1"]))
+        gt = nifti.load(case.seg_path).get_fdata(dtype="float32").round().astype("int32")
+        reset()
+        seg, info = engine.predict_case(case)  # the warm-up, counted for (c)
+        torch.cuda.synchronize()
+        launches = counts()
+        secs, parts = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            seg, info = engine.predict_case(case)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            parts.append({"preprocess": info["preprocess_s"], "forwards_and_labels":
+                          info["predict_s"], "decode_and_rest": secs[-1] - info["total_s"]})
+        ev = evaluate_segmentation(normalize_to_brats2025(seg).astype("int32"),
+                                   normalize_to_brats2025(gt).astype("int32"))
+        ref = internal_to_brats2025(nifti.load(flagship).get_fdata(dtype="float32"))
+        eb = tuple(int(s) for s in info["bucket_shape"])
+        rec["engine"] = {
+            "case": "BraTS-SYN-00200-000 240x240x155", "bucket": list(eb),
+            "models": "model1 fold 0 + model2 fold 0 (trained), fullconv, 8-flip TTA",
+            "s_per_case": secs, "s_per_case_min": min(secs),
+            "s_per_case_median": statistics.median(secs), "s_parts": parts,
+            "dice": {r: v["dice"] for r, v in ev["compound"].items()},
+            "label_agreement_with_committed_flagship": float((seg == ref).mean()),
+            "flagship_note": "the committed file was made with 2 + 2 folds (information only)"}
+        want = {name: 0 for name in kernels}
+        for cfg in (MODEL1_BN, MODEL2_GN_LARGE):
+            for name, n in _kernel_layers(cfg, eb).items():
+                want[name] += 8 * n  # 1 fold x 8 mirrors
+        rec["launches"] = {"per_case": launches, "formula": want,
+                           "equal": launches == want and all(v > 0 for v in want.values())}
+        del engine
+    line = json.dumps(rec)
+    print(line, flush=True)
+    if log:
+        with open(log, "a") as f:
+            f.write(line + "\n")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="braintpu_torch.tools.probe", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("probe", choices=["int8", "attn", "stage"])
+    ap.add_argument("probe", choices=["int8", "attn", "stage", "trained2"])
     ap.add_argument("--log", metavar="PATH", help="append the JSON lines to PATH")
     ap.add_argument("--trees", nargs="+", metavar="DIR",
                     help="stage: the checkouts to compare, in order (default: this one)")
+    ap.add_argument("--checkpoints", metavar="DIR",
+                    default=str(Path(__file__).resolve().parents[2] / "results" / "trained_synth"
+                                / "checkpoints"),
+                    help="trained2: the checkpoint root (model1/, model2/fold_0.npz)")
     args = ap.parse_args(argv)
+    if args.probe == "trained2":
+        rec = run_trained2(args.checkpoints, args.log)
+        fw = rec["forward"]
+        ok = (fw["label_agreement"] >= 0.999 and rec["launches"]["equal"]
+              and fw["launches_kernels_bf16"] == {"conv3d_tap_merged": 0,
+                                                  **fw["launches_formula"]}
+              and not any(fw["launches_plain_f32"].values()))
+        return 0 if ok else 1
     if args.probe == "stage":
         run_stage(args.trees or [str(Path(__file__).resolve().parents[2])], args.log)
         return 0

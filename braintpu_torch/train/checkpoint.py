@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-__all__ = ["CheckpointManager", "latest_step"]
+__all__ = ["CheckpointManager", "latest_step", "restore_train_state", "save_train_state"]
 
 STATE_FILE = "train_state.pt"
 
@@ -106,8 +106,18 @@ class CheckpointManager:
         """Nothing stays open between calls (kept for the reference's API)."""
 
 
+def save_train_state(directory: os.PathLike, state, max_to_keep: int = 3) -> int:
+    """One-shot save; returns the step saved under."""
+    return CheckpointManager(directory, max_to_keep).save(state)
+
+
 def latest_step(directory: os.PathLike) -> Optional[int]:
     if not Path(directory).exists():
         return None
     return CheckpointManager(directory).latest_step()
 
+
+def restore_train_state(directory: os.PathLike, template, step: Optional[int] = None):
+    """Restore step ``step`` (default: the latest) into ``template``, in
+    place; returns it, or None when the directory holds no checkpoint."""
+    return CheckpointManager(directory).restore(template, step)

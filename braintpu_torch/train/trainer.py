@@ -92,9 +92,11 @@ def trainable_leaves(params) -> List[torch.Tensor]:
     return out
 
 
-def make_optimizer(params, tc: TrainConfig) -> torch.optim.SGD:
-    """SGD + Nesterov over the tree's trainable leaves, at ``base_lr`` (the
-    step sets each update's rate from :func:`poly_lr`)."""
+def make_optimizer(tc: TrainConfig, params) -> torch.optim.SGD:
+    """SGD + Nesterov over the trainable leaves of ``params``, at ``base_lr``
+    (the step sets each update's rate from :func:`poly_lr`).  A torch
+    optimizer holds its parameters, so the port takes the tree after the
+    reference's ``tc``."""
     return torch.optim.SGD(trainable_leaves(params), lr=tc.base_lr, momentum=tc.momentum,
                            dampening=0.0, weight_decay=tc.weight_decay, nesterov=True)
 
@@ -111,7 +113,7 @@ def create_train_state(params: Dict[str, Any], tc: TrainConfig,
         return t.requires_grad_(key not in _BUFFER_KEYS)
 
     params = _walk(dict(params), leaf)
-    return TrainState(params=params, optimizer=make_optimizer(params, tc), step=0)
+    return TrainState(params=params, optimizer=make_optimizer(tc, params), step=0)
 
 
 @torch.no_grad()
@@ -187,16 +189,19 @@ def fit(
     num_steps: int,
     checkpoint_dir: Optional[os.PathLike] = None,
     checkpoint_every: int = 250,
+    resume: bool = True,
     generator: Optional[torch.Generator] = None,
-    on_metrics: Optional[Callable[[Dict[str, float]], None]] = None,
     step_fn: Optional[Callable] = None,
+    on_metrics: Optional[Callable[[Dict[str, float]], None]] = None,
 ) -> TrainState:
     """Checkpointed training loop (restart-safe), as the reference's ``fit``.
 
-    Resumes from the latest checkpoint under ``checkpoint_dir`` (the
-    restored step count shortens the loop), saves every ``checkpoint_every``
-    steps and once at the end, and stops early when ``batches`` runs out.
-    ``generator`` feeds dropout.  ``on_metrics`` gets each step's metrics as
+    With ``resume``, resumes from the latest checkpoint under
+    ``checkpoint_dir`` (the restored step count shortens the loop); without
+    it, a checkpoint there is not read and the loop starts from ``state``'s
+    step.  Saves every ``checkpoint_every`` steps and once at the end, and
+    stops early when ``batches`` runs out.  ``generator`` (in the place of
+    the reference's ``rng`` key) feeds dropout.  ``on_metrics`` gets each step's metrics as
     floats (which waits for the device every step).  ``step_fn(state, batch,
     generator)`` defaults to :func:`train_step` and may be a sharded step
     (``parallel.make_sharded_train_step``, called on every rank with the same
@@ -209,9 +214,10 @@ def fit(
         from .checkpoint import CheckpointManager
 
         mgr = CheckpointManager(checkpoint_dir)
-        restored = ckpt.restore(mgr, state) if ckpt is not None else mgr.restore(state)
-        if restored is not None:
-            state = restored
+        if resume:
+            restored = ckpt.restore(mgr, state) if ckpt is not None else mgr.restore(state)
+            if restored is not None:
+                state = restored
     if step_fn is None:
         step_fn = lambda st, b, gen: train_step(st, b, cfg, tc, gen)  # noqa: E731
 

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 
 __all__ = ["run_env_checks", "format_env_report"]
 
+REQUIRED_PACKAGES = ["torch", "numpy", "scipy"]
 OPTIONAL_PACKAGES = ["httpx", "matplotlib"]
 
 
@@ -67,7 +68,7 @@ def run_env_checks(checkpoint_dir: Optional[Path] = None) -> List[Dict]:
         checks.append(_check("nvcc", True, _build._nvcc()))
     except RuntimeError as e:
         checks.append(_check("nvcc", False, e))
-    for pkg in ("numpy", "scipy"):
+    for pkg in REQUIRED_PACKAGES[1:]:  # torch: its own checks above
         try:
             mod = importlib.import_module(pkg)
             checks.append(_check(f"package {pkg}", True, getattr(mod, "__version__", "?")))

@@ -105,6 +105,12 @@ patch runner and ``dryrun_multichip(2)``, 14f the rank bodies of
 ``--batch-cases 2``, 14g every kernel against its plain version at every
 launch key the sharded ranks recorded; phase 4 also holds ``conv_stage``'s
 output-plane window (an X slab's own planes) against the plain version.
+Phase 15 (:func:`closing_surface`) runs the reference's last public
+functions on the card on seed 200: ``confusion_counts`` and
+``evaluate_pair`` on card tensors against the host's counts,
+``stack_folds`` of the trained model-1 folds on the card against the host
+stack, ``param_count`` of each fold, and ``estimate_activation_bytes`` of
+MODEL1_BN beside one forward's peak memory.
 Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
@@ -1277,6 +1283,108 @@ def sharded_phases(torch, np, case_dir: Path, root: Path, tmp: Path, layers,
         print(json.dumps({"sharded_launch_keys": rep}), flush=True)
         out["14g"] = rep
     return out
+
+
+def closing_surface(torch, np, case_dir: Path, seg_path: Path) -> dict:
+    """Phase 15: the reference's last public functions on the card, on seed
+    200's case and the trained model-1 folds.
+
+    ``confusion_counts``, ``evaluate_pair`` and ``evaluate_segmentation`` on
+    card tensors of ``seg_path`` (a BraTS-2025 label map of the case) against
+    the generator's ground truth, equal to the host's bincount counts;
+    ``stack_folds`` of the loaded folds on the card, equal to the host stack;
+    ``param_count`` of each fold, equal to the npz's own size; and
+    ``estimate_activation_bytes(MODEL1_BN)`` beside the peak memory of one
+    bf16 forward at its patch (printed, not gated)."""
+    from braintpu_torch.ckpt.npz import load_pytree_npz, params_from_jax
+    from braintpu_torch.infer.engine import ModelBundle
+    from braintpu_torch.infer.sliding_window import stack_folds
+    from braintpu_torch.io import nifti
+    from braintpu_torch.io.brats import find_cases
+    from braintpu_torch.labels.convert import normalize_to_brats2025
+    from braintpu_torch.metrics.segmentation import (COMPOUND_REGIONS, _region_counts_np,
+                                                     confusion_counts, evaluate_pair,
+                                                     evaluate_segmentation, metrics_from_counts)
+    from braintpu_torch.models.unet3d import (MODEL1_BN, apply_unet, estimate_activation_bytes,
+                                              param_count)
+
+    cuda = torch.device("cuda")
+    case = find_cases(case_dir)[0]
+    label = lambda p: normalize_to_brats2025(  # noqa: E731
+        nifti.load(p).get_fdata(dtype="float32")).astype(np.int32)
+    pred, gt = label(seg_path), label(case.seg_path)
+    regions = ((1,), (2,), (3,)) + tuple(COMPOUND_REGIONS.values())
+    host = _region_counts_np(pred, gt, regions)
+    pred_d, gt_d = torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)
+    card = confusion_counts(pred_d, gt_d, regions)
+    counts_equal = card.device.type == "cuda" and np.array_equal(card.cpu().numpy(), host)
+    pairs_equal = all(evaluate_pair(pred_d, gt_d, lab).as_dict()
+                      == metrics_from_counts(*host[i].tolist()).as_dict()
+                      for i, lab in enumerate((1, 2, 3)))
+    eval_equal = evaluate_segmentation(pred_d, gt_d) == evaluate_segmentation(pred, gt)
+
+    paths = [CKPTS / "model1" / f"fold_{f}.npz" for f in (0, 1)]
+    trees = [load_pytree_npz(p) for p in paths]
+    npz_sizes = [sum(int(a.size) for a in np.load(p).values()) for p in paths]
+    folds = [params_from_jax(t, MODEL1_BN) for t in trees]
+    counts = [param_count(f) for f in folds]
+    stacked_host = stack_folds(folds)
+
+    def on_card(t):
+        if isinstance(t, dict):
+            return {k: on_card(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [on_card(v) for v in t]
+        return t.to(cuda)
+
+    stacked_card = stack_folds([on_card(f) for f in folds])
+    leaves = []
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k])
+        elif isinstance(a, (list, tuple)):
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            leaves.append(b.device.type == "cuda" and a.shape[0] == 2
+                          and torch.equal(a, b.cpu()))
+
+    walk(stacked_host, stacked_card)
+    del stacked_card
+    bundle = ModelBundle.from_folds(MODEL1_BN, folds[:1]).to(cuda)
+    x = torch.randn((1, *MODEL1_BN.patch_size, MODEL1_BN.in_channels), device=cuda,
+                    generator=torch.Generator(device="cuda").manual_seed(15))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        logits = apply_unet(bundle.fold_params[0], x, MODEL1_BN, folded=bundle.folded)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rec = {
+        "case": "BraTS-SYN-00200-000 240x240x155", "labels": seg_path.name,
+        "confusion_counts_card_equal_host": counts_equal,
+        "evaluate_pair_card_equal_host": pairs_equal,
+        "evaluate_segmentation_card_equal_host": eval_equal,
+        "counts": {str(r): c for r, c in zip(regions, host.tolist())},
+        "stack_folds_leaves": len(leaves), "stack_folds_card_equal_host": all(leaves),
+        "param_count_per_fold": counts, "npz_values_per_fold": npz_sizes,
+        "estimate_activation_bytes_model1": estimate_activation_bytes(MODEL1_BN),
+        "forward_peak_bytes_above_inputs": peak - before, "forward_peak_bytes": peak,
+        "forward": f"MODEL1_BN fold 0, folded, bf16, N=1 at {MODEL1_BN.patch_size}",
+        "logits_finite": bool(torch.isfinite(logits).all()),
+    }
+    print(json.dumps({"closing_surface": rec}), flush=True)
+    bad = [k for k in ("confusion_counts_card_equal_host", "evaluate_pair_card_equal_host",
+                       "evaluate_segmentation_card_equal_host", "stack_folds_card_equal_host",
+                       "logits_finite") if not rec[k]]
+    if bad or not leaves or counts != npz_sizes:
+        raise AssertionError(f"closing surface: {bad}; param_count {counts} against the npz "
+                             f"sizes {npz_sizes}; {len(leaves)} stacked leaves")
+    return rec
 
 
 def main() -> int:
@@ -2758,6 +2866,10 @@ def main() -> int:
         sharded = sharded_phases(torch, np, flagship, root, tmp,
                                  (tap_layers, stage_layers, up_layers, MODEL2_GN_LARGE),
                                  pair_dirs=(brats_size, pair))
+
+        with phase("15 closing surface on the card (seed 200)"):
+            torch.cuda.empty_cache()
+            closing_surface(torch, np, flagship, seg200)
 
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]

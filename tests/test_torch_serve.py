@@ -245,6 +245,23 @@ def test_analyze_json_accepts_wrapped_base64(server, synth_case):
     assert status["status"] == "done", status
 
 
+def test_status_reads_the_journal_while_the_summary_is_being_written(tmp_path):
+    """A summary the pipeline has opened but not finished is no status yet:
+    the journal answers (a poll used to raise and drop its connection)."""
+    store = JobStore(tmp_path / "sessions", tmp_path / "results")
+    job_id = store.create_job("PART-0001")["job_id"]
+    out = store.case_results_dir(job_id)
+    out.mkdir(parents=True)
+    (out / "events.jsonl").write_text(json.dumps({"stage": "extracting", "status": "start"})
+                                      + "\n")
+    summary = json.dumps({"status": "completed"}, indent=2)
+    for partial in ("", summary[:5]):
+        (out / "pipeline_summary.json").write_text(partial)
+        assert store.status(job_id)["stage"] == "extracting"
+    (out / "pipeline_summary.json").write_text(summary)
+    assert store.status(job_id)["status"] == "done"
+
+
 def test_job_that_dies_early_reports_error(tmp_path):
     store = JobStore(tmp_path / "sessions", tmp_path / "results")
     record = store.create_job("DEAD-0001")
