@@ -111,9 +111,6 @@ class FeatureContext:
     affine: np.ndarray
     zooms: Tuple[float, float, float]
     modality_files: Dict[str, str] = field(default_factory=dict)
-    #: the device of the device feature groups (``None``: the card when one
-    #: is present); ``auto`` routing takes its groups only for a CUDA device
-    device: Any = None
 
     _tumor_masks: Optional[Dict[str, np.ndarray]] = None
     _brain_masks: Dict[str, np.ndarray] = field(default_factory=dict)
@@ -124,10 +121,8 @@ class FeatureContext:
     #: shared by every device feature kernel; built lazily on the
     #: BRAINTPU_DEVICE_FEATURES device path only
     _device_volumes: Optional[Any] = None
-    #: in-flight background upload thread (start_device_upload) and the
-    #: exception it raised, re-raised when the volumes are asked for
+    #: in-flight background upload thread (start_device_upload)
     _device_upload: Optional[Any] = None
-    _device_upload_error: Optional[Exception] = None
     _mass_stats: Optional[Dict[str, Any]] = None
     _artifact_stats: Optional[Dict[str, Any]] = None
     _morph_stats: Optional[Dict[str, Any]] = None
@@ -148,6 +143,13 @@ class FeatureContext:
     #: the device frees up at step 5 after the route was host at step 1, a
     #: device kernel would pay a synchronous DeviceVolumes upload.
     _device_route: Optional[frozenset] = None
+    # the port's own fields, after the reference's:
+    #: the device of the device feature groups (``None``: the card when one
+    #: is present); ``auto`` routing takes its groups only for a CUDA device
+    device: Any = None
+    #: the exception the background upload raised, re-raised when the
+    #: volumes are asked for
+    _device_upload_error: Optional[Exception] = None
 
     @classmethod
     def load(cls, input_folder, segmentation_path) -> "FeatureContext":

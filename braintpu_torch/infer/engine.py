@@ -74,9 +74,10 @@ class ModelBundle:
 
     cfg: UNetConfig
     fold_params: List[Dict[str, Any]]  # see from_folds
+    #: BatchNorm folded into the convs (False, the reference's default: the
+    #: norms run in the forward; always False for GroupNorm / InstanceNorm)
+    folded: bool = False
     name: str = ""
-    #: BatchNorm folded into the convs (False for GroupNorm / InstanceNorm)
-    folded: bool = True
 
     @classmethod
     def from_folds(
@@ -107,11 +108,11 @@ class ModelBundle:
             return t.to(cfg.compute_dtype) if t.dim() >= 5 else t.float()
 
         params = [fold_batchnorm(p, cfg) if folded else p for p in fold_params]
-        return cls(cfg, [_map_tree(store, p) for p in params], name or cfg.name, folded)
+        return cls(cfg, [_map_tree(store, p) for p in params], folded, name or cfg.name)
 
     def to(self, device: torch.device) -> "ModelBundle":
         moved = [_map_tree(lambda t: t.to(device), p) for p in self.fold_params]
-        return ModelBundle(self.cfg, moved, self.name, self.folded)
+        return ModelBundle(self.cfg, moved, self.folded, self.name)
 
 
 def uncrop_labels(seg_cropped: np.ndarray, crop) -> np.ndarray:
@@ -159,8 +160,6 @@ class InferenceEngine:
     #: "fullconv": the whole-volume forward (about 3x fewer FLOPs on a
     #: BraTS-size case; GroupNorm statistics over the whole volume).
     mode: str = "sliding"
-    #: None = the card; "cpu" only when asked for.
-    device: Union[None, str, torch.device] = None
     #: optional ``parallel.mesh.Mesh`` with a ``data`` axis:
     #: predict_cases_batched splits each case batch over it (case-level data
     #: parallelism, no collective on the forward path).  Single-case calls
@@ -174,6 +173,9 @@ class InferenceEngine:
     #: the extra background border shifts values near the volume edge, while
     #: the sharding itself is exact (tested).
     spatial_shard: bool = False
+    #: None = the card; "cpu" only when asked for (the port's own field,
+    #: after the reference's)
+    device: Union[None, str, torch.device] = None
 
     def __post_init__(self) -> None:
         if self.mode not in ("sliding", "fullconv"):

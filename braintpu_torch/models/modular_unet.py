@@ -66,6 +66,8 @@ class ModularUNetConfig:
     group_norm_groups: int = 8
     negative_slope: float = 0.01
     compute_dtype: torch.dtype = torch.bfloat16
+    #: the dtype :func:`init_modular_unet` draws its leaves at
+    param_dtype: torch.dtype = torch.float32
     final_nonlin: str = "softmax"
 
     def __post_init__(self):
@@ -96,7 +98,7 @@ class ModularUNetConfig:
         """Per-stage shim for the :mod:`.unet3d` blocks."""
         return UNetConfig(norm=self.norm, group_norm_groups=self.group_norm_groups,
                           negative_slope=self.negative_slope, compute_dtype=self.compute_dtype,
-                          conv_kernel=tuple(kernel))
+                          param_dtype=self.param_dtype, conv_kernel=tuple(kernel))
 
 
 def stage_features(cfg: ModularUNetConfig) -> List[int]:
@@ -111,11 +113,13 @@ REFERENCE_3D = ModularUNetConfig(max_features=512)
 
 def _init_block(rng: np.random.Generator, cin: int, cout: int, kernel: Triple,
                 cfg: ModularUNetConfig) -> Dict[str, torch.Tensor]:
-    block = {"w": _he_init(rng, (*kernel, cin, cout), cfg.negative_slope),
-             "b": torch.zeros(cout), "scale": torch.ones(cout), "shift": torch.zeros(cout)}
+    dt = cfg.param_dtype
+    block = {"w": _he_init(rng, (*kernel, cin, cout), cfg.negative_slope).to(dt),
+             "b": torch.zeros(cout, dtype=dt), "scale": torch.ones(cout, dtype=dt),
+             "shift": torch.zeros(cout, dtype=dt)}
     if cfg.norm == "batch":
-        block["mean"] = torch.zeros(cout)
-        block["var"] = torch.ones(cout)
+        block["mean"] = torch.zeros(cout, dtype=dt)
+        block["var"] = torch.ones(cout, dtype=dt)
     return block
 
 
@@ -154,11 +158,13 @@ def init_decoder(cfg: ModularUNetConfig, rng: np.random.Generator) -> List[Dict]
     n = cfg.num_stages - 1
     for i, s in enumerate(range(n - 1, -1, -1)):
         below, skip = feats[s + 1], feats[s]
-        up_w = _he_init(rng, (below, *cfg.pool_kernels[s + 1], skip), cfg.negative_slope)
+        up_w = _he_init(rng, (below, *cfg.pool_kernels[s + 1], skip),
+                        cfg.negative_slope).to(cfg.param_dtype)
         blocks = [_init_block(rng, 2 * skip, skip, cfg.conv_kernels[s], cfg)]
         for _ in range(dec_blocks[i] - 1):
             blocks.append(_init_block(rng, skip, skip, cfg.conv_kernels[s], cfg))
-        seg_w = _he_init(rng, (1, 1, 1, skip, cfg.num_classes), cfg.negative_slope)
+        seg_w = _he_init(rng, (1, 1, 1, skip, cfg.num_classes),
+                         cfg.negative_slope).to(cfg.param_dtype)
         stages.append({"up": {"w": up_w}, "blocks": blocks, "seg": {"w": seg_w}})
     return stages
 
@@ -183,8 +189,9 @@ def apply_decoder(params: Sequence[Dict], skips: Sequence[torch.Tensor], cfg: Mo
 
 
 def init_modular_unet(cfg: ModularUNetConfig, seed: int) -> Dict[str, Any]:
-    """Random f32 parameters from an int seed (one numpy Generator, the
-    encoder drawn before the decoder)."""
+    """Random parameters at ``cfg.param_dtype`` from an int seed (one numpy
+    Generator, the encoder drawn before the decoder; each He leaf drawn in
+    f32 and cast, as the reference's)."""
     rng = np.random.default_rng(int(seed))
     return {"encoder": init_encoder(cfg, rng), "decoder": init_decoder(cfg, rng)}
 

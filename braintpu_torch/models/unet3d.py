@@ -28,6 +28,15 @@ Two inference forwards:
 Both forwards send their bf16 2x2x2 up-convs to the Hopper kernel
 ``ops.upconv.upconv2x`` and end in the 1x1x1 seg head (f32 logits).
 
+That is the dispatch of ``conv_impl="auto"``, the default.  The config's
+``conv_impl`` is the reference's switch between its hand-written conv
+kernel and the library, and every conv of every forward below reads it
+through :func:`resolve_conv_impl`: ``"pallas"`` sends every bf16 stride-1
+3x3x3 conv the tap kernel takes to it, whatever its depth, and keeps the
+deferred-norm path off ``conv_stage`` (its convs materialize their inputs
+first); ``"xla3d"``, ``"decomp2d"`` and ``"merged2d"`` send every conv to
+``F.conv3d``.  The up-convs do not read it, as in the reference.
+
 The **axial families** (``AXIAL_UNET``, ``AXIAL_UNET_FULL``; BatchNorm
 U-Nets with axial attention, :mod:`.axial`) run the blocks forward below
 in every mode, folded or not: their convs take the same dispatch as
@@ -106,6 +115,8 @@ __all__ = [
     "estimate_activation_bytes",
     "choose_impl",
     "choose_stage_impl",
+    "resolve_conv_impl",
+    "conv_routes",
     "apply_unet",
     "Sharding",
     "sharded_forward",
@@ -134,9 +145,20 @@ class UNetConfig:
     pool_kernel: Tuple[int, int, int] = (2, 2, 2)
     conv_kernel: Tuple[int, int, int] = (3, 3, 3)
     compute_dtype: torch.dtype = torch.bfloat16
+    #: the dtype :func:`init_params` draws its leaves at
+    param_dtype: torch.dtype = torch.float32
+    #: the conv lowering (:func:`resolve_conv_impl`): "auto", the measured
+    #: per-layer dispatch (:func:`choose_impl`, :func:`choose_stage_impl`);
+    #: "pallas", the Hopper tap kernel for every conv it takes; "xla3d",
+    #: "decomp2d", "merged2d", the library's ``F.conv3d`` for every conv
+    conv_impl: str = "auto"
     #: encoder stages whose convs take channel-wise dropout in training
     dropout_levels: Tuple[int, ...] = (4,)
     dropout_rate: float = 0.0
+    #: the head's nonlinearity as named by the reference's config ("sigmoid"
+    #: for the regions models, "softmax" for classic heads); carried, read
+    #: by no forward (the engines apply the sigmoid of the regions recipe)
+    final_nonlin: str = "sigmoid"
     #: Axial attention (the reference's Axial_UNet extras).  "decoder": the
     #: Generic_UNet option, sequential per-axis attention residually after
     #: each up-conv, ``no_attention_levels`` indexed by decoder stage u
@@ -306,7 +328,8 @@ def upconv_layers(
 
 def _he_init(rng: np.random.Generator, shape, negative_slope: float) -> torch.Tensor:
     """Kaiming-normal fan-in with leaky-ReLU gain (torch ``kaiming_normal_``),
-    f32, drawn with numpy as the reference draws it."""
+    f32, drawn with numpy as the reference draws it.  The callers cast it to
+    ``param_dtype`` (the reference's ``astype``: one round to nearest even)."""
     fan_in = int(np.prod(shape[:-1]))  # (kd, kh, kw, cin) for DHWIO
     gain = np.sqrt(2.0 / (1.0 + negative_slope**2))
     std = gain / np.sqrt(fan_in)
@@ -315,15 +338,16 @@ def _he_init(rng: np.random.Generator, shape, negative_slope: float) -> torch.Te
 
 
 def _init_block(rng: np.random.Generator, cin: int, cout: int, cfg: UNetConfig):
+    dt = cfg.param_dtype
     block = {
-        "w": _he_init(rng, (*cfg.conv_kernel, cin, cout), cfg.negative_slope),
-        "b": torch.zeros(cout),
-        "scale": torch.ones(cout),
-        "shift": torch.zeros(cout),
+        "w": _he_init(rng, (*cfg.conv_kernel, cin, cout), cfg.negative_slope).to(dt),
+        "b": torch.zeros(cout, dtype=dt),
+        "scale": torch.ones(cout, dtype=dt),
+        "shift": torch.zeros(cout, dtype=dt),
     }
     if cfg.norm == "batch":
-        block["mean"] = torch.zeros(cout)
-        block["var"] = torch.ones(cout)
+        block["mean"] = torch.zeros(cout, dtype=dt)
+        block["var"] = torch.ones(cout, dtype=dt)
     return block
 
 
@@ -369,10 +393,11 @@ def attention_plan(cfg: UNetConfig) -> Dict[str, Dict[int, Dict[str, Any]]]:
 
 
 def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
-    """Random f32 parameters from an int seed.
+    """Random parameters at ``cfg.param_dtype`` from an int seed.
 
     The conv leaves are the reference's ``init_params(cfg, seed)`` bit for
-    bit (a numpy Generator of the seed, drawn in the same order).  An axial
+    bit, at any ``param_dtype`` (a numpy Generator of the seed, drawn in f32
+    in the same order and cast).  An axial
     config's attention leaves (:func:`attention_plan`) come from a second
     numpy Generator of ``(seed, 1)``, in the reference's order (encoder
     levels, then decoder stages); the reference draws them from
@@ -385,8 +410,9 @@ def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
     def attention(s):
         if s["kind"] == "attn_block":
             return init_axial_block(attn_rng, s["channels"], s["shape"], s["heads"],
-                                    s["dim_head"], bn=cfg.axial_bn)
-        return init_axial_params(attn_rng, s["channels"], s["shape"], s["heads"], s["dim_head"])
+                                    s["dim_head"], bn=cfg.axial_bn, param_dtype=cfg.param_dtype)
+        return init_axial_params(attn_rng, s["channels"], s["shape"], s["heads"], s["dim_head"],
+                                 cfg.param_dtype)
 
     enc = encoder_features(cfg)
     bneck = bottleneck_features(cfg)
@@ -403,14 +429,16 @@ def init_params(cfg: UNetConfig, seed: int) -> Dict[str, Any]:
         cin = bneck
     decoder = []
     for u, ch in enumerate(decoder_channels(cfg)):
-        up_w = _he_init(rng, (ch["from_down"], *cfg.pool_kernel, ch["skip"]), cfg.negative_slope)
+        up_w = _he_init(rng, (ch["from_down"], *cfg.pool_kernel, ch["skip"]),
+                        cfg.negative_slope).to(cfg.param_dtype)
         # StackedConvLayers always builds its first block: two decoder convs
         # at least, whatever conv_per_stage (the reference's floor of 2)
         blocks = [_init_block(rng, 2 * ch["skip"], ch["skip"], cfg)]
         for _ in range(max(cfg.conv_per_stage - 2, 0)):
             blocks.append(_init_block(rng, ch["skip"], ch["skip"], cfg))
         blocks.append(_init_block(rng, ch["skip"], ch["out"], cfg))
-        seg_w = _he_init(rng, (1, 1, 1, ch["out"], cfg.num_classes), cfg.negative_slope)
+        seg_w = _he_init(rng, (1, 1, 1, ch["out"], cfg.num_classes),
+                         cfg.negative_slope).to(cfg.param_dtype)
         stage = {"up": {"w": up_w}, "blocks": blocks, "seg": {"w": seg_w}}
         if u in plan["decoder"]:
             stage[plan["decoder"][u]["kind"]] = attention(plan["decoder"][u])
@@ -539,6 +567,71 @@ def choose_stage_impl(
     return "kernel" if stage_supported(tuple(shape), co, ci2) else "library"
 
 
+#: the reference's ``conv_impl`` values; every one but "auto" and "pallas"
+#: names a TPU lowering of XLA's, which the library's ``F.conv3d`` takes
+#: the place of
+_CONV_IMPLS = ("auto", "decomp2d", "merged2d", "pallas", "xla3d")
+
+
+def resolve_conv_impl(
+    cfg: UNetConfig,
+    shape: Tuple[int, ...],
+    kernel: Tuple[int, int, int],
+    stride: Tuple[int, int, int],
+    co: int,
+    ci2: Optional[int] = None,
+) -> str:
+    """Where one conv goes under ``cfg.conv_impl``: ``"kernel"`` (the Hopper
+    tap kernel), ``"stage"`` (the Hopper ``conv_stage``) or ``"library"``
+    (``F.conv3d``).  Every conv of every forward is dispatched here.
+
+    ``shape`` is the conv's (N, D, H, W, ci) input (the global shape of an
+    X-sharded conv).  A deferred-norm conv (a GroupNorm / InstanceNorm eval
+    forward) passes ``ci2``, the skip's channels (0 without a skip), and
+    ``shape`` holds the first input's channels only.
+
+    * "auto": :func:`choose_impl` (the band to the tap kernel) and, for a
+      deferred-norm conv, :func:`choose_stage_impl` (``conv_stage``);
+    * "pallas": the tap kernel for every stride-1 3x3x3 conv of a bf16
+      config that it takes (``kernel_supported``), whatever its depth, the
+      rest to the library, as the reference's ``_conv3d_pallas`` falls
+      back; never ``conv_stage`` (the reference's fused stage path needs
+      "auto"): a deferred-norm conv materializes its inputs first;
+    * "xla3d", "decomp2d", "merged2d": the library;
+    * anything else raises the reference's ``ValueError``.
+    """
+    impl = cfg.conv_impl
+    if impl == "auto":
+        if ci2 is None:
+            return choose_impl(shape, kernel, stride, co, cfg.compute_dtype)
+        stage = choose_stage_impl(shape, kernel, stride, co, ci2, cfg.compute_dtype)
+        return "stage" if stage == "kernel" else "library"
+    if impl == "pallas":
+        full = tuple(shape) if not ci2 else (*shape[:4], shape[4] + ci2)
+        if (tuple(kernel) == (3, 3, 3) and tuple(stride) == (1, 1, 1)
+                and cfg.compute_dtype == torch.bfloat16 and kernel_supported(full, co)):
+            return "kernel"
+        return "library"
+    if impl in _CONV_IMPLS:
+        return "library"
+    raise ValueError(
+        f"unknown conv_impl {impl!r}: expected 'auto', 'decomp2d', "
+        "'merged2d', 'pallas' or 'xla3d'")
+
+
+def conv_routes(cfg: UNetConfig, spatial_shape: Tuple[int, int, int],
+                batch: int = 1) -> List[str]:
+    """:func:`resolve_conv_impl` of every 3x3x3 conv of one eval forward at
+    ``spatial_shape``, in execution order: the deferred-norm layers
+    (:func:`deferred_layers`) for a GroupNorm / InstanceNorm U-Net, else
+    :func:`conv_layers`."""
+    if cfg.norm != "batch" and not cfg.axial_attention:
+        return [resolve_conv_impl(cfg, s, cfg.conv_kernel, st, co, c2)
+                for s, st, co, c2 in deferred_layers(cfg, spatial_shape, batch)]
+    return [resolve_conv_impl(cfg, s, cfg.conv_kernel, st, co)
+            for s, st, co in conv_layers(cfg, spatial_shape, batch)]
+
+
 @dataclass(frozen=True)
 class Sharding:
     """How one forward is spread over ranks; each field a
@@ -632,20 +725,26 @@ def _block(x, block, cfg: UNetConfig, stride) -> torch.Tensor:
 
 def _conv(x, block, stride, cfg: UNetConfig, negative_slope: Optional[float]) -> torch.Tensor:
     """One 3-D conv + bias (+ LeakyReLU) at the compute dtype, dispatched by
-    :func:`choose_impl`: the band to the Hopper kernel (differentiable), the
-    rest to ``F.conv3d``.  X-sharded (:class:`Sharding`), the conv reads its
-    neighbours' boundary planes and the dispatch reads the global shape."""
-    w, b = block["w"], block["b"]
+    :func:`resolve_conv_impl`: to the Hopper kernel (differentiable) or to
+    ``F.conv3d``.  X-sharded (:class:`Sharding`), the dispatch reads the
+    global shape."""
+    w = block["w"]
     comm = _axis("spatial")
     shape = tuple(x.shape) if comm is None else _global_shape(x, comm)
-    impl = choose_impl(shape, tuple(w.shape[:3]), stride, int(w.shape[4]), cfg.compute_dtype)
+    impl = resolve_conv_impl(cfg, shape, tuple(w.shape[:3]), stride, int(w.shape[4]))
+    return _conv_on(x, w, block["b"], stride, cfg.compute_dtype, negative_slope, impl == "kernel")
+
+
+def _conv_on(x, w, b, stride, dtype, negative_slope: Optional[float], kernel: bool):
+    """The conv on the tap kernel (``kernel``) or ``F.conv3d``; X-sharded
+    (:class:`Sharding`), it reads its neighbours' boundary planes."""
+    comm = _axis("spatial")
     if comm is not None:
-        return _conv_spatial(x, w, b, stride, cfg.compute_dtype, negative_slope, comm,
-                             impl == "kernel")
-    if impl == "kernel":
-        return conv3d_tap_merged(x.to(cfg.compute_dtype).contiguous(),
-                                 w.to(cfg.compute_dtype).contiguous(), b.float(), negative_slope)
-    return _conv3d_library(x, w, b, stride, cfg.compute_dtype, negative_slope)
+        return _conv_spatial(x, w, b, stride, dtype, negative_slope, comm, kernel)
+    if kernel:
+        return conv3d_tap_merged(x.to(dtype).contiguous(), w.to(dtype).contiguous(), b.float(),
+                                 negative_slope)
+    return _conv3d_library(x, w, b, stride, dtype, negative_slope)
 
 
 def _conv_spatial(x, w, b, stride, dtype, negative_slope, comm, kernel: bool) -> torch.Tensor:
@@ -798,8 +897,8 @@ def _deferred_block(state, skip_state, block, stride, cfg: UNetConfig):
     g = cfg.group_norm_groups if cfg.norm == "group" else co
     comm = _axis("spatial")
     shape = tuple(h.shape) if comm is None else _global_shape(h, comm)
-    impl = choose_stage_impl(shape, tuple(w.shape[:3]), stride, co, ci - ci1, cfg.compute_dtype)
-    if impl == "kernel":
+    impl = resolve_conv_impl(cfg, shape, tuple(w.shape[:3]), stride, co, ci - ci1)
+    if impl == "stage":
         # X-sharded: each input with its neighbours' planes (raw: the kernel
         # applies the affine as it reads them), the slab's own output planes
         # only, their statistics then summed over the shards
@@ -819,15 +918,13 @@ def _deferred_block(state, skip_state, block, stride, cfg: UNetConfig):
                                w.to(torch.bfloat16).contiguous(), b.float(), stats=True, **kw)
         mean_g, var_g = _moments(*_shard_sums(s1, s2, D * H * W), g)
         return y, _affine_from_moments(mean_g, var_g, block, cfg, co)
-    # the reference's fallback: materialize the input(s), library conv, and
-    # the statistics of the rounded output
+    # the reference's fallback: materialize the input(s), the conv (the tap
+    # kernel under conv_impl="pallas" where it takes the layer, else the
+    # library), and the statistics of the rounded output
     hm = _materialize(h, aff, cfg.compute_dtype)
     if skip_state is not None:
         hm = torch.cat([hm, _materialize(*skip_state, cfg.compute_dtype)], dim=-1)
-    if comm is not None:
-        y = _conv_spatial(hm, w, b, stride, cfg.compute_dtype, None, comm, False)
-    else:
-        y = _conv3d_library(hm, w, b, stride, cfg.compute_dtype, None)
+    y = _conv_on(hm, w, b, stride, cfg.compute_dtype, None, impl == "kernel")
     mean_g, var_g = _spatial_group_stats(y, g)
     return y, _affine_from_moments(mean_g, var_g, block, cfg, co)
 

@@ -170,12 +170,12 @@ def shard_train_state(state: TrainState, cfg: UNetConfig,
     old = trainable_leaves(state.params)
     new = trainable_leaves(params)
     moment_layouts = [l for t, l, k in _layout_leaves(p_sh, state.params) if t.requires_grad]
-    opt = _sgd_like(state.optimizer, new)
+    opt = _sgd_like(state.opt_state, new)
     for o, p, l in zip(old, new, moment_layouts):
-        buf = state.optimizer.state.get(o, {}).get("momentum_buffer")
+        buf = state.opt_state.state.get(o, {}).get("momentum_buffer")
         if buf is not None:
             opt.state[p]["momentum_buffer"] = place(buf, l)
-    return (TrainState(params=params, optimizer=opt, step=state.step),
+    return (TrainState(params=params, opt_state=opt, step=state.step),
             TrainStateLayout(params=p_sh, momentum=moment_layouts, step=replicated(mesh)))
 
 
@@ -208,7 +208,7 @@ class ShardedStep:
         dev = self.mesh.device
         image = image[rows].to(dev, non_blocking=True)
         labels = labels[rows].to(dev, non_blocking=True)
-        opt = state.optimizer
+        opt = state.opt_state
         for group in opt.param_groups:
             group["lr"] = poly_lr(tc, state.step)
         opt.zero_grad(set_to_none=True)
@@ -259,15 +259,15 @@ class ShardedStep:
             return full(p, l).requires_grad_(p.requires_grad)
 
         params = build(state.params, self.layout.params)
-        opt = _sgd_like(state.optimizer, trainable_leaves(params))
+        opt = _sgd_like(state.opt_state, trainable_leaves(params))
         for o, p, l in zip(trainable_leaves(state.params), trainable_leaves(params),
                            self.layout.momentum):
-            buf = state.optimizer.state.get(o, {}).get("momentum_buffer")
+            buf = state.opt_state.state.get(o, {}).get("momentum_buffer")
             if buf is not None:
                 opt.state[p]["momentum_buffer"] = full(buf, l)
-        for g_new, g_old in zip(opt.param_groups, state.optimizer.param_groups):
+        for g_new, g_old in zip(opt.param_groups, state.opt_state.param_groups):
             g_new["lr"] = g_old["lr"]
-        return TrainState(params=params, optimizer=opt, step=state.step)
+        return TrainState(params=params, opt_state=opt, step=state.step)
 
     @torch.no_grad()
     def load_state(self, state: TrainState, whole: TrainState) -> TrainState:
@@ -279,9 +279,9 @@ class ShardedStep:
             t.copy_(_split(w, l, mesh))
         for o, w, l in zip(trainable_leaves(state.params), trainable_leaves(whole.params),
                            self.layout.momentum):
-            buf = whole.optimizer.state.get(w, {}).get("momentum_buffer")
+            buf = whole.opt_state.state.get(w, {}).get("momentum_buffer")
             if buf is not None:
-                state.optimizer.state[o]["momentum_buffer"] = _split(buf, l, mesh).to(
+                state.opt_state.state[o]["momentum_buffer"] = _split(buf, l, mesh).to(
                     o.device).clone()
         state.step = int(whole.step)
         return state

@@ -57,7 +57,7 @@ class CheckpointManager:
 
     def save(self, state, step: Optional[int] = None) -> int:
         step = int(state.step) if step is None else int(step)
-        opt = state.optimizer
+        opt = state.opt_state
         payload = {
             "params": _flatten(state.params),
             "optimizer": opt.state_dict(),
@@ -92,7 +92,7 @@ class CheckpointManager:
             for k, t in want.items():
                 t.copy_(got[k])
         try:
-            template.optimizer.load_state_dict(payload["optimizer"])
+            template.opt_state.load_state_dict(payload["optimizer"])
         except ValueError as e:
             raise ValueError(f"checkpoint {step}: optimizer mismatch ({e})") from e
         template.step = int(payload["step"])

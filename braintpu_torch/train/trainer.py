@@ -62,10 +62,12 @@ class TrainConfig:
 @dataclass
 class TrainState:
     """Parameters (a tree of f32 tensors; trainable leaves require grad), the
-    optimizer over the trainable leaves, and the count of steps taken."""
+    optimizer state and the count of steps taken, in the reference's order.
+    ``opt_state`` is the torch optimizer over the trainable leaves, which
+    holds the state (the momentum buffers)."""
 
     params: Dict[str, Any]
-    optimizer: torch.optim.Optimizer
+    opt_state: torch.optim.Optimizer
     step: int = 0
 
 
@@ -113,7 +115,7 @@ def create_train_state(params: Dict[str, Any], tc: TrainConfig,
         return t.requires_grad_(key not in _BUFFER_KEYS)
 
     params = _walk(dict(params), leaf)
-    return TrainState(params=params, optimizer=make_optimizer(tc, params), step=0)
+    return TrainState(params=params, opt_state=make_optimizer(tc, params), step=0)
 
 
 @torch.no_grad()
@@ -159,7 +161,7 @@ def train_step(
     ``(state, {"loss", "grad_norm", "step"})`` with device tensors for the
     first two (reading them waits for the device).
     """
-    opt = state.optimizer
+    opt = state.opt_state
     leaves = trainable_leaves(state.params)
     dev = leaves[0].device
     image = torch.as_tensor(batch["image"]).to(dev, non_blocking=True)

@@ -78,7 +78,7 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str = "braintpu_torch_trace"):
+def device_trace(log_dir: str = "/tmp/braintpu_trace"):
     """Profile the block with ``torch.profiler`` (host ops, and the card's
     kernels when CUDA is available) and write its Chrome trace to
     ``log_dir/<pid>.<ms>.pt.trace.json`` when the block ends."""

@@ -110,7 +110,13 @@ functions on the card on seed 200: ``confusion_counts`` and
 ``evaluate_pair`` on card tensors against the host's counts,
 ``stack_folds`` of the trained model-1 folds on the card against the host
 stack, ``param_count`` of each fold, and ``estimate_activation_bytes`` of
-MODEL1_BN beside one forward's peak memory.
+MODEL1_BN beside one forward's peak memory.  Phase 16
+(:func:`conv_impl_phase`) runs phase 8's two-model engine on the seed-200
+case at 240x240x155 under ``UNetConfig.conv_impl`` "auto", "pallas" and
+"xla3d": s/case, launches against ``conv_routes``, peak memory, labels
+against "auto", every launched kernel against its plain version at its
+launch keys, and an unknown value raising; ``--only-conv-impl`` runs
+phases 1, 2 and 16 alone.
 Every phase prints its wall seconds.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check raises and the script exits non-zero without it.  It needs a
 CUDA card (it has no CPU path) and writes only ``braintpu_torch/_build/``
@@ -1387,11 +1393,149 @@ def closing_surface(torch, np, case_dir: Path, seg_path: Path) -> dict:
     return rec
 
 
+#: the conv_impl values phase 16 runs: the default, the tap kernel wherever
+#: it takes a conv, and the library everywhere ("decomp2d" and "merged2d"
+#: take the library's route as "xla3d" does)
+CONV_IMPLS = ("auto", "pallas", "xla3d")
+
+
+def conv_impl_phase(torch, case_dir: Path, root: Path, tmp: Path, layers) -> dict:
+    """Phase 16: ``UNetConfig.conv_impl`` on the card.
+
+    The CLI's two-model fullconv engine (8-flip TTA, ``--folds 2``: model 1's
+    trained folds from ``root``, model 2 from ``init_params`` seeds 1000 and
+    1001) on ``case_dir`` (seed 200 at 240x240x155) under each of
+    :data:`CONV_IMPLS`, the value set on both bundles' configs.  Per value:
+    one case counts each kernel's launches and records their launch keys,
+    then s/case is the min and median of 3 after that warm-up, with the peak
+    memory, and each model's probability maps alone (min of 3); each kernel
+    that launched is held against its plain version at every launch key (as
+    phase 14g); the labels are held to "auto"'s.  It
+    fails when "auto"'s launches differ from phase 8's formula (``layers``:
+    the tap / stage / up-conv layer functions of ``main``), when a value's
+    launches differ from ``conv_routes`` x 16 forwards per model (so
+    "xla3d" launches no tap kernel and no ``conv_stage``, and "pallas" no
+    ``conv_stage`` and a tap kernel at every admitted conv), when the labels
+    agree on less than 0.999 of the voxels, or when an unknown value does
+    not raise the reference's ValueError."""
+    import numpy as np
+
+    from braintpu_torch.cli import build_parser, load_engine
+    from braintpu_torch.infer.fullconv import predict_probs_fullconv
+    from braintpu_torch.io.brats import find_cases, load_case_volumes
+    from braintpu_torch.models.unet3d import conv_routes
+    from braintpu_torch.pre.preprocess import preprocess_case
+    from braintpu_torch.ops import _build
+    from braintpu_torch.ops.conv3d import conv3d_tap_merged
+    from braintpu_torch.ops.stage import conv_stage
+    from braintpu_torch.ops.upconv import upconv2x
+
+    tap_layers, stage_layers, up_layers = layers
+    kernels = {"conv3d_tap_merged": conv3d_tap_merged, "conv_stage": conv_stage,
+               "upconv2x": upconv2x}
+    base = load_engine(build_parser().parse_args(
+        ["segment", "--input", str(case_dir), "--output", str(tmp / "out16"),
+         "--checkpoints", str(root), "--models", "model1,model2", "--folds", "2",
+         "--random-weights"]))
+    case = find_cases(case_dir)[0]
+    data, _, _ = load_case_volumes(case)
+    vol = preprocess_case(data, patch_size=(32,) * 3, pad_multiple=32,
+                          device=torch.device("cuda")).data
+
+    def engine_for(impl):
+        return dataclasses.replace(base, models=[
+            dataclasses.replace(m, cfg=dataclasses.replace(m.cfg, conv_impl=impl))
+            for m in base.models])
+
+    out, labels, checked = {}, {}, {}
+    for impl in CONV_IMPLS:
+        eng = engine_for(impl)
+        for fn in kernels.values():
+            fn.launches = 0
+        _build.launch_keys = {}
+        try:
+            seg, info = eng.predict_case(case)  # warm-up: launches and keys of one case
+            torch.cuda.synchronize()
+        finally:
+            keys, _build.launch_keys = _build.launch_keys, None
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        bucket = tuple(info["bucket_shape"])
+        want = {"conv3d_tap_merged": 0, "conv_stage": 0, "upconv2x": 0}
+        for m in eng.models:  # 2 folds x 8 mirrors, one launch per layer each
+            routes = conv_routes(m.cfg, bucket)
+            want["conv3d_tap_merged"] += 16 * routes.count("kernel")
+            want["conv_stage"] += 16 * routes.count("stage")
+            want["upconv2x"] += 16 * len(up_layers(m.cfg, bucket))
+        if impl == "auto":
+            formula = {"conv3d_tap_merged": 16 * len(tap_layers(bucket)),
+                       "conv_stage": 16 * len(stage_layers(bucket)),
+                       "upconv2x": want["upconv2x"]}
+            if want != formula:
+                raise AssertionError(f"16 auto: conv_routes {want} != phase 8's formula {formula}")
+        if launches != want:
+            raise AssertionError(f"16 conv_impl={impl!r}: launches per case {launches} != {want}")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.predict_case(case)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        forwards = {}  # each model's 2 folds x 8 mirrors alone, min of 3
+        for m in eng.models:
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    predict_probs_fullconv(m.fold_params, vol, m.cfg, tta=True, folded=m.folded)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            forwards[m.name] = min(ts)
+        labels[impl] = seg
+        agree = float(np.mean(seg == labels["auto"]))
+        errs = {}
+        for name, ks in sorted(keys.items()):
+            res = []
+            for i, k in enumerate(sorted(ks, key=repr)):
+                if k not in checked:
+                    checked[k] = check_launch_key(torch, name, k, seed=400 + len(checked))
+                res.append(checked[k])
+            torch.cuda.empty_cache()
+            errs[name] = {"launch_keys": len(res),
+                          "max_abs_err": max(r["max_abs_err"] for r in res)}
+        rec = {"conv_impl": impl, "case": case.case_id, "bucket": list(bucket),
+               "models": "model1 (2 trained folds) + model2 (init_params seeds 1000, 1001)",
+               "s_per_case_min": min(times), "s_per_case_median": statistics.median(times),
+               "s_per_case": times, "launches_per_case": launches,
+               "max_memory_allocated_bytes": peak, "label_agreement_with_auto": agree,
+               "s_probability_maps_per_model_min": forwards,
+               "kernels_vs_plain_at_launch_keys": errs}
+        print(json.dumps({"conv_impl_on_card": rec}), flush=True)
+        out[impl] = rec
+        if agree < 0.999:
+            raise AssertionError(f"16 conv_impl={impl!r}: labels agree with auto on {agree}")
+        del eng
+        torch.cuda.empty_cache()
+    try:
+        engine_for("tap").predict_case(case)
+    except ValueError as e:
+        if "unknown conv_impl 'tap'" not in str(e):
+            raise
+        out["unknown_value_raises"] = str(e)
+    else:
+        raise AssertionError("16: conv_impl='tap' did not raise")
+    print(json.dumps({"conv_impl_unknown_value": out["unknown_value_raises"]}), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--trace", metavar="DIR",
                     help="write the profiled case's Chrome trace to DIR/trace.json.gz")
+    ap.add_argument("--only-conv-impl", action="store_true",
+                    help="run phases 1, 2 and 16 (conv_impl on the card) alone")
     args = ap.parse_args()
     t_start = time.perf_counter()
     # the chat phases take the assistant's offline path: no LLM key, so no
@@ -1490,6 +1634,21 @@ def main() -> int:
             if toolchain_present():
                 raise AssertionError("g++ and zlib.h are present, yet the native library "
                                      "did not build")
+
+    if args.only_conv_impl:
+        with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
+            tmp = Path(tmp)
+            case = write_synth_case(tmp / "flag", "BraTS-SYN-00200-000", seed=200,
+                                    shape=(240, 240, 155))
+            root = tmp / "ckpt"
+            (root / "model1").mkdir(parents=True)
+            for f in (0, 1):
+                (root / "model1" / f"fold_{f}.npz").symlink_to(CKPTS / "model1" / f"fold_{f}.npz")
+            with phase("16 conv_impl on the card (seed 200, 240x240x155)"):
+                conv_impl_phase(torch, case, root, tmp, (tap_layers, stage_layers, up_layers))
+        print(f"# total wall: {time.perf_counter() - t_start:.1f}s")
+        print(nvidia_smi())
+        return 0
 
     with tempfile.TemporaryDirectory(prefix="braintpu_torch_smoke_") as tmp:
         tmp = Path(tmp)
@@ -2424,7 +2583,7 @@ def main() -> int:
             params = {**attn, "encoder": tp["encoder"], "bottleneck": tp["bottleneck"],
                       "decoder": [{**a_st, **t_st} for a_st, t_st in
                                   zip(attn["decoder"], tp["decoder"])]}
-            params = ModelBundle(cfg, [params], "mixed", True).to(torch.device("cuda")) \
+            params = ModelBundle(cfg, [params], True, "mixed").to(torch.device("cuda")) \
                 .fold_params[0]
             data, _, _ = load_case_volumes(find_cases(case_dir)[0])
             pre = preprocess_case(data, patch_size=patch, device=torch.device("cuda"))
@@ -2871,6 +3030,11 @@ def main() -> int:
             torch.cuda.empty_cache()
             closing_surface(torch, np, flagship, seg200)
 
+        with phase("16 conv_impl on the card (seed 200, 240x240x155)"):
+            torch.cuda.empty_cache()
+            impl_runs = conv_impl_phase(torch, flagship, root, tmp,
+                                        (tap_layers, stage_layers, up_layers))
+
     def heaviest(name):
         at_main = [r for r in results[name] if list(main_bucket) in r["buckets"]]
         return max(at_main, key=lambda r: r["bound_ms"])
@@ -2922,6 +3086,8 @@ def main() -> int:
             "sharded_launch_keys_checked": {
                 k: v for k, v in sharded["14g"][name].items() if k != "launch_keys"},
             **({"out_planes_check": stage_window} if name == "conv_stage" else {}),
+            "launches_conv_impl": {impl: impl_runs[impl]["launches_per_case"][name]
+                                   for impl in CONV_IMPLS},
         })
     cube = next(r for r in int8_records if r["probe"] == "int8:4096cube")
     line.append({

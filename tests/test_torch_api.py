@@ -269,14 +269,14 @@ def test_save_and_restore_train_state_round_trip_bit_equal(tmp_path):
     state, _ = trainer.train_step(state, _batches(1)[0], cfg, tc)  # momentum buffers exist
     assert checkpoint.save_train_state(tmp_path, state, max_to_keep=2) == 1
     want = {k: v.detach().clone() for k, v in _flat(state.params)}
-    want_opt = [s["momentum_buffer"].clone() for s in state.optimizer.state.values()]
+    want_opt = [s["momentum_buffer"].clone() for s in state.opt_state.state.values()]
     _, _, other = _state(1)
     assert checkpoint.restore_train_state(tmp_path / "missing", other) is None
     restored = checkpoint.restore_train_state(tmp_path, other)
     assert restored is other and restored.step == 1
     got = dict(_flat(restored.params))
     assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
-    got_opt = [s["momentum_buffer"] for s in restored.optimizer.state.values()]
+    got_opt = [s["momentum_buffer"] for s in restored.opt_state.state.values()]
     assert len(got_opt) == len(want_opt)
     assert all(torch.equal(a, b) for a, b in zip(got_opt, want_opt))
     assert checkpoint.latest_step(tmp_path) == 1

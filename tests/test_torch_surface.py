@@ -10,7 +10,12 @@ module of ``braintpu/``, mapped to its counterpart in ``braintpu_torch/``:
   reference's parameters first and in the reference's order; parameters
   only the port has come after them (so a positional call binds the same
   argument in both packages); every public method of the reference's class
-  exists on the port's.
+  exists on the port's.  A ``@dataclass`` or ``NamedTuple`` class without
+  an ``__init__`` of its own has its generated one: its annotated fields
+  (``ClassVar`` and ``field(init=False)`` left out), in order;
+* every parameter both have keeps the reference's literal default (a
+  constant, a tuple of constants, or a dotted name, ``jnp.X`` read as
+  ``torch.X``).  The port may give a default where the reference has none.
 
 :data:`EXCEPTIONS` is the by-design list, each entry with its reason; no
 other name, parameter or module is skipped, and an entry that no longer
@@ -21,8 +26,10 @@ Keys:
 * ``"mod.py:name"``: the name is not in the port; ``"mod.py:name->new"``:
   the port's name for it is ``new``;
 * ``"mod.py:func(param)"``: the port has no such parameter (``func`` may be
-  ``Class.method``); ``"mod.py:func(param->new)"``: the port's parameter in
-  its place is ``new``; ``*`` as the module or function matches any.
+  ``Class.method``, and ``Class.__init__`` for a dataclass's fields);
+  ``"mod.py:func(param->new)"``: the port's parameter in its place is
+  ``new``; ``"mod.py:func(param=)"``: the port's default of ``param``
+  differs; ``*`` as the module or function matches any.
 """
 
 from __future__ import annotations
@@ -118,14 +125,96 @@ def _parse_key(key: str):
 _PARSED = {k: _parse_key(k) for k in EXCEPTIONS}
 
 
-def _params(fn: ast.FunctionDef) -> List[str]:
+#: a signature: the parameter names in order, and each one's default
+#: (:func:`_default`; absent for a parameter without one)
+Sig = Tuple[List[str], Dict[str, object]]
+
+
+class _Marker:
+    def __init__(self, text: str):
+        self.text = text
+
+    def __repr__(self) -> str:
+        return self.text
+
+
+_NO_LITERAL = _Marker("<not a literal>")  # a call, a lambda, a default_factory, ...
+_REQUIRED = _Marker("<required>")
+
+
+def _default(node: ast.expr):
+    """A default as compared: the value of a literal, a dotted name as a
+    string with ``jnp.`` read as ``torch.``, else :data:`_NO_LITERAL`."""
+    try:
+        return ast.literal_eval(node)
+    except ValueError:
+        pass
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return _NO_LITERAL
+    dotted = ".".join([node.id, *reversed(parts)])
+    return "torch." + dotted[4:] if dotted.startswith("jnp.") else dotted
+
+
+def _params(fn: ast.FunctionDef) -> Sig:
     a = fn.args
-    return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
+    positional = a.posonlyargs + a.args
+    names = [p.arg for p in positional + a.kwonlyargs]
+    defaults = {p.arg: _default(d)
+                for p, d in zip(positional[len(positional) - len(a.defaults):], a.defaults)}
+    defaults.update({p.arg: _default(d) for p, d in zip(a.kwonlyargs, a.kw_defaults)
+                     if d is not None})
+    return names, defaults
 
 
-def _methods(cls: ast.ClassDef) -> Dict[str, List[str]]:
-    return {n.name: _params(n) for n in cls.body
-            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+def _dotted_tail(node: ast.expr) -> str:
+    """``dataclass`` of ``dataclass``, ``dataclasses.dataclass`` or
+    ``dataclass(frozen=True)``."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    if isinstance(node, ast.Subscript):
+        node = node.value
+    return node.attr if isinstance(node, ast.Attribute) else getattr(node, "id", "")
+
+
+def _generated_init(cls: ast.ClassDef) -> Optional[Sig]:
+    """The ``__init__`` that ``@dataclass`` or ``NamedTuple`` writes for
+    ``cls`` (``self`` first), or None when neither writes one."""
+    dc = [d for d in cls.decorator_list if _dotted_tail(d) == "dataclass"]
+    named = any(_dotted_tail(b) == "NamedTuple" for b in cls.bases)
+    if not (dc or named) or any(
+            isinstance(d, ast.Call) and any(k.arg == "init" and not ast.literal_eval(k.value)
+                                            for k in d.keywords) for d in dc):
+        return None
+    names, defaults = ["self"], {}
+    for node in cls.body:
+        if not (isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name)):
+            continue
+        if _dotted_tail(node.annotation) == "ClassVar":
+            continue
+        value = node.value
+        if isinstance(value, ast.Call) and _dotted_tail(value.func) == "field":
+            kw = {k.arg: k.value for k in value.keywords}
+            if "init" in kw and not ast.literal_eval(kw["init"]):
+                continue
+            value = kw.get("default", value if "default_factory" in kw else None)
+        names.append(node.target.id)
+        if value is not None:
+            defaults[node.target.id] = _default(value)
+    return names, defaults
+
+
+def _methods(cls: ast.ClassDef) -> Dict[str, Sig]:
+    out = {n.name: _params(n) for n in cls.body
+           if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    if "__init__" not in out:
+        init = _generated_init(cls)
+        if init is not None:
+            out["__init__"] = init
+    return out
 
 
 def _top_statements(body):
@@ -186,27 +275,49 @@ def _ref_modules() -> List[str]:
     return sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
 
 
-def _check_params(mod: str, qual: str, ref: List[str], port: List[str], used: set,
+def _same_default(ref, port) -> bool:
+    if ref is _NO_LITERAL:  # nothing literal to hold the port to
+        return True
+    return port is not _NO_LITERAL and type(ref) is type(port) and ref == port
+
+
+def _check_params(mod: str, qual: str, ref_sig: Sig, port_sig: Sig, used: set,
                   problems: List[str]) -> None:
     """The reference's parameters (renamed / dropped by the table) first, in
-    order, then the port's own."""
-    want = []
+    order, then the port's own; each shared parameter with the reference's
+    literal default unless the table excuses it."""
+    (ref, ref_defaults), (port, port_defaults) = ref_sig, port_sig
+    want, pairs = [], []
     for p in ref:
         keys = _find(mod, qual, p)
         if keys:
             _, _, _, _, new = _PARSED[keys[0]]
             if p in port:  # the port has the reference's name: nothing to excuse
                 want.append(p)
+                pairs.append((p, p))
                 continue
             if new is None or new in port:
                 used.add(keys[0])
                 if new is not None:
                     want.append(new)
+                    pairs.append((p, new))
                 continue
         want.append(p)
+        pairs.append((p, p))
     if port[:len(want)] != want:
         problems.append(f"{qual}: reference parameters {want} (after the table), "
                         f"port {port}")
+    for r, p in pairs:
+        if r not in ref_defaults or p not in port:
+            continue  # required in the reference (a port default is allowed)
+        rd, pd = ref_defaults[r], port_defaults.get(p, _REQUIRED)
+        if _same_default(rd, pd):
+            continue
+        keys = _find(mod, qual, r + "=")
+        if keys:
+            used.add(keys[0])
+        else:
+            problems.append(f"{qual}({p}): default {pd!r} in the port, {rd!r} in the reference")
 
 
 def _module_problems(mod: str, used: set) -> List[str]:
@@ -275,8 +386,9 @@ def test_every_exception_has_a_reason_and_still_applies():
 
 
 def test_surface_check_flags_a_missing_name_and_a_moved_parameter(tmp_path, monkeypatch):
-    """The check itself: a name removed from the port and a reordered
-    parameter are both reported."""
+    """The check itself: a name removed from the port, a reordered
+    parameter, a moved dataclass field and a changed default are all
+    reported."""
     mod = "labels/postprocess.py"
     src = (PORT / mod).read_text()
     fake = tmp_path / "braintpu_torch"
@@ -284,8 +396,18 @@ def test_surface_check_flags_a_missing_name_and_a_moved_parameter(tmp_path, monk
     (fake / mod).write_text(
         src.replace("def keep_largest_component(", "def _gone(")
            .replace("    seg: np.ndarray,\n    et_label: int = 3,\n    replace_with: int = 2,",
-                    "    seg: np.ndarray,\n    replace_with: int = 2,\n    et_label: int = 3,"))
+                    "    seg: np.ndarray,\n    replace_with: int = 2,\n    et_label: int = 3,")
+           .replace("min_voxels: int = 200,", "min_voxels: int = 100,"))
+    dc_mod = "metrics/segmentation.py"
+    dc_src = (PORT / dc_mod).read_text()
+    moved = dc_src.replace("    dice: float\n    iou: float\n", "    iou: float\n    dice: float\n")
+    assert moved != dc_src
+    (fake / "metrics").mkdir()
+    (fake / dc_mod).write_text(moved)
     monkeypatch.setattr(sys.modules[__name__], "PORT", fake)
     problems = "\n".join(_module_problems(mod, set()))
     assert "keep_largest_component missing" in problems
     assert "et_min_size_postprocess: reference parameters" in problems
+    assert "et_min_size_postprocess(min_voxels): default 100 in the port, 200" in problems
+    assert "SegMetrics.__init__: reference parameters" in "\n".join(
+        _module_problems(dc_mod, set()))

@@ -227,7 +227,7 @@ def test_three_train_steps_equal_reference(norm):
         assert tm["step"] == int(jm["step"]) == i + 1
         assert _rel(float(tm["loss"]), float(jm["loss"])) <= 1e-5
         assert _rel(float(tm["grad_norm"]), float(jm["grad_norm"])) <= 1e-5
-        assert ts.optimizer.param_groups[0]["lr"] == pytest.approx(float(sched(i)), rel=1e-6)
+        assert ts.opt_state.param_groups[0]["lr"] == pytest.approx(float(sched(i)), rel=1e-6)
     got = dict(_flat(params_to_jax(ts.params, tcfg)))
     want = dict(_flat(jax.tree_util.tree_map(np.asarray, js.params)))
     assert set(got) == set(want)
